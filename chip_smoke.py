@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (libvpx_opencl_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card (sm_90a,
+e.g. an H100) and nvcc:
+
+    python3 chip_smoke.py
+
+It builds the hand-written kernels from csrc/, holds each against its
+plain PyTorch version, decodes tests/vectors/bench_1080p.ivf (30 frames,
+1920x1080) through the port's entry point on the card with a per-frame
+MD5 gate, then six more conformance streams, and times the decode and the
+kernels. Any failure raises (exit code != 0). It prints, in order:
+
+  * the card's name and power limit (nvidia-smi) and the kernel build time;
+  * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
+    versions on random cases at R x C = (4,6), (3,3), (1,5), (5,1),
+    (68,120): exact equality (tolerance 0: integer math);
+  * the 1080p decode: MD5 of every frame, K1/K2 launches per frame;
+  * the six extra streams' MD5 results;
+  * decode fps (median of 3 timed runs after one warm-up) and each
+    kernel's per-frame time from CUDA events, beside the card's name and
+    power limit;
+  * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+
+It imports nothing of JAX or of the JAX package.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+VECTORS = os.path.join(HERE, "tests", "vectors")
+GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (68, 120)]
+EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
+                 "odd_65x49", "part4_cif", "seg_roi_qcif"]
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
+
+
+def fail(msg):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def intra_case(np, rng, R, C):
+    N = R * C
+    return (rng.integers(0, 256, (N, 16, 16)), rng.integers(0, 256, (N, 8, 8)),
+            rng.integers(0, 256, (N, 8, 8)),
+            rng.integers(-80, 80, (N, 16, 16)),
+            rng.integers(-80, 80, (N, 8, 8)), rng.integers(-80, 80, (N, 8, 8)),
+            rng.integers(0, 5, N), rng.integers(0, 4, N), rng.random(N) < 0.6,
+            rng.integers(0, 10, (N, 16)))
+
+
+def lf_case(np, rng, R, C):
+    N = R * C
+    flevel = rng.integers(0, 64, N)
+    flevel[rng.random(N) < 0.2] = 0
+    return (rng.integers(0, 256, (N, 16, 16)), rng.integers(0, 256, (N, 8, 8)),
+            rng.integers(0, 256, (N, 8, 8)), flevel, 2 * (flevel + 2) + 1,
+            2 * flevel + 1, np.maximum(flevel // 2, 1),
+            np.clip(flevel // 16 + 1, 0, 3), rng.random(N) < 0.7)
+
+
+def max_abs_diff(torch, got, want):
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in zip(got, want))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.ops import _cuda
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
+    from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _cuda.load()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, "
+          f"{len(_cuda.KERNELS)} sources in parallel)", flush=True)
+    for name, rep in _cuda.ptxas_report.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    def to_dev(arrs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                .to(torch.bool if a.dtype == bool else torch.int32)
+                for a in arrs]
+
+    # -- K1 / K2 vs plain on random cases --------------------------------
+    err = {"intra_wavefront": 0, "lf_wavefront": 0}
+    for R, C in GEOMS:
+        rng = np.random.default_rng(R * 1000 + C)
+        args = to_dev(intra_case(np, rng, R, C))
+        got = W.intra_recon(R, C, *args)
+        want = W.intra_recon_plain(R, C, *args)
+        d = max_abs_diff(torch, got, want)
+        print(f"K1 vs plain {R}x{C}: max_abs_diff {d}", flush=True)
+        if d:
+            fail(f"K1 disagrees with intra_recon_plain at {R}x{C}")
+        err["intra_wavefront"] = max(err["intra_wavefront"], d)
+        largs = to_dev(lf_case(np, rng, R, C))
+        for simple in (False, True):
+            got = W.loop_filter(R, C, simple, *largs)
+            want = W.loop_filter_plain(R, C, simple, *largs)
+            d = max_abs_diff(torch, got, want)
+            print(f"K2 vs plain {R}x{C} simple={simple}: max_abs_diff {d}",
+                  flush=True)
+            if d:
+                fail(f"K2 disagrees with loop_filter_plain at {R}x{C}")
+            err["lf_wavefront"] = max(err["lf_wavefront"], d)
+    torch.cuda.synchronize()
+
+    # -- main path: bench_1080p through the port's entry point -----------
+    bench = os.path.join(VECTORS, "bench_1080p.ivf")
+    golden = load_golden_md5s(bench + ".md5")
+    for name in W.launches:
+        W.launches[name] = 0
+    per_frame = []
+    n = 0
+    for i, planes in enumerate(TD.decode_ivf_torch(bench, device="cuda")):
+        # the generator yields once the frame's dispatch has finished
+        per_frame.append(tuple(W.launches[k] - sum(p[j] for p in per_frame)
+                               for j, k in enumerate(("intra_wavefront",
+                                                      "lf_wavefront"))))
+        if frame_md5(*planes) != golden[i]:
+            fail(f"bench_1080p frame {i}: MD5 mismatch")
+        n += 1
+    launches = dict(W.launches)
+    if n != len(golden):
+        fail(f"bench_1080p: {n} frames decoded, {len(golden)} expected")
+    print(f"bench_1080p: {n}/{len(golden)} frames MD5-exact", flush=True)
+    print(f"launches per frame (K1, K2): {per_frame}", flush=True)
+    if any(k1 <= 0 or k2 <= 0 for k1, k2 in per_frame):
+        fail("a frame of the main path did not launch both kernels")
+
+    for name in EXTRA_STREAMS:
+        path = os.path.join(VECTORS, f"{name}.ivf")
+        gold = load_golden_md5s(path + ".md5")
+        got = [frame_md5(*p) for p in TD.decode_ivf_torch(path,
+                                                          device="cuda")]
+        if got != gold:
+            fail(f"{name}: MD5 mismatch")
+        print(f"{name}: {len(got)}/{len(gold)} frames MD5-exact", flush=True)
+
+    # -- decode throughput (bench.py's semantics: decode only) -----------
+    frames = read_ivf(bench).frames
+
+    def decode_all():
+        dec = TD.TorchDecoder(device="cuda")
+        for payload, _pts in frames:
+            dec.decode_frame_core(payload)
+        dec._sync()
+        torch.cuda.synchronize()
+
+    decode_all()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decode_all()
+        runs.append(time.perf_counter() - t0)
+    fps = len(frames) / statistics.median(runs)
+    print(f"decode bench_1080p: {fps:.2f} fps (median of 3: "
+          f"{[round(r, 4) for r in runs]} s) [{card}]", flush=True)
+
+    # -- per-kernel time on the main path's inputs -----------------------
+    # Wrap the plane-level entries the decoder calls: time every launch
+    # with CUDA events, keep the inputs of a few frames, and run the plain
+    # versions on the same inputs afterwards.
+    k1_fn, k2_fn = W.intra_recon_planes, W.loop_filter_planes
+    sample = {0, 1, len(frames) // 2}
+    rec = {"k1": [], "k2": []}
+    kept = {"k1": [], "k2": []}
+    stats = {"k1": [], "k2": []}
+
+    def probe_k1(R, C, y, u, v, ry, ru, rv, params):
+        f = len(rec["k1"])
+        inp = [t.clone() for t in (y, u, v)] if f in sample else None
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        k1_fn(R, C, y, u, v, ry, ru, rv, params)
+        e1.record()
+        rec["k1"].append((e0, e1))
+        stats["k1"].append((params[:, 2].clone(), params[:, 0].clone()))
+        if inp is not None:
+            kept["k1"].append((R, C, inp, [t.clone() for t in (ry, ru, rv)],
+                               params.clone(),
+                               [t.clone() for t in (y, u, v)]))
+
+    def probe_k2(R, C, simple, y, u, v, params):
+        f = len(rec["k2"])
+        inp = [t.clone() for t in (y, u, v)] if f in sample else None
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        k2_fn(R, C, simple, y, u, v, params)
+        e1.record()
+        rec["k2"].append((e0, e1))
+        stats["k2"].append(params[:, 0].clone())
+        if inp is not None:
+            kept["k2"].append((R, C, simple, inp, params.clone(),
+                               [t.clone() for t in (y, u, v)]))
+
+    W.intra_recon_planes, W.loop_filter_planes = probe_k1, probe_k2
+    try:
+        decode_all()
+    finally:
+        W.intra_recon_planes, W.loop_filter_planes = k1_fn, k2_fn
+    k_ms = {k: statistics.mean(a.elapsed_time(b) for a, b in v)
+            for k, v in rec.items()}
+
+    def time_plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_ms = {"k1": [], "k2": []}
+
+    def check_plain():
+        for R, C, inp, res, params, out in kept["k1"]:
+            planes = [t.clone() for t in inp]
+            plain_ms["k1"].append(time_plain(lambda: W._intra_planes_plain(
+                R, C, *planes, *res, params)))
+            d = max_abs_diff(torch, planes, out)
+            err["intra_wavefront"] = max(err["intra_wavefront"], d)
+            if d:
+                fail("K1 disagrees with its plain version on a 1080p frame")
+        for R, C, simple, inp, params, out in kept["k2"]:
+            planes = [t.clone() for t in inp]
+            plain_ms["k2"].append(time_plain(lambda: W._lf_planes_plain(
+                R, C, simple, *planes, params)))
+            d = max_abs_diff(torch, planes, out)
+            err["lf_wavefront"] = max(err["lf_wavefront"], d)
+            if d:
+                fail("K2 disagrees with its plain version on a 1080p frame")
+
+    # the decoder's worker runs under inference mode; so do its plain twins
+    with torch.inference_mode():
+        check_plain()
+
+    # least time for the same work, per frame, from this run's data: bytes
+    # each input read once / output written once, and the integer
+    # operations the per-pixel arithmetic needs, whichever is longer
+    R, C = kept["k1"][0][0], kept["k1"][0][1]
+    N = R * C
+    k1_bounds, k2_bounds = [], []
+    for intra, mode in stats["k1"]:
+        ni = int(intra.sum())
+        nb = int(((mode == W.B_PRED_M) & (intra != 0)).sum())
+        byts = N * 4 + ni * (384 * 4 + W.INTRA_COLS * 4 + 384)
+        ops = ni * 384 * 8 + nb * 256 * 24
+        k1_bounds.append((byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S))
+    for flevel in stats["k2"]:
+        na = int((flevel > 0).sum())
+        byts = N * 4 + na * (W.LF_COLS * 4 + 2 * 384)
+        ops = na * (8 * 16 + 8 * 8) * 60
+        k2_bounds.append((byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S))
+
+    def bound(bs):
+        b = statistics.mean(x[0] for x in bs)
+        o = statistics.mean(x[1] for x in bs)
+        return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
+
+    print(f"K1 intra_wavefront: {k_ms['k1']:.4f} ms/frame "
+          f"({W.diag_launches(R, C)} launches) [{card}]", flush=True)
+    print(f"K2 lf_wavefront: {k_ms['k2']:.4f} ms/frame "
+          f"({W.diag_launches(R, C)} launches) [{card}]", flush=True)
+
+    kernels = []
+    for key, name, src, replaces, bs in (
+            ("k1", "intra_wavefront", "libvpx_opencl_tpu_torch/csrc/"
+             "intra_wavefront.cu", "libvpx_opencl_tpu/ops/pallas_wavefront.py"
+             ":148", k1_bounds),
+            ("k2", "lf_wavefront", "libvpx_opencl_tpu_torch/csrc/"
+             "lf_wavefront.cu", "libvpx_opencl_tpu/ops/pallas_wavefront.py"
+             ":407", k2_bounds)):
+        b_ms, b_by = bound(bs)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "max_abs_diff": err[name],
+            "ms": k_ms[key], "plain_ms": statistics.mean(plain_ms[key]),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "card": card})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled on first use with `nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC` into its own
+shared library under the package's `_build/` directory (not committed),
+all sources in parallel, and bound through ctypes with a plain C
+interface: device pointers, sizes and the stream go in as c_void_p /
+c_int, and each entry point returns cudaGetLastError().
+
+Nothing here runs at import: a machine without nvcc or a card can import
+every module of the package, and nvcc runs only when a kernel is first
+launched (or `load()` is called).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# kernel name -> (source, C entry point, argtypes)
+KERNELS = {
+    "intra_wavefront": ("intra_wavefront.cu", "intra_wavefront",
+                        [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I,
+                         _I, _VP]),
+    "lf_wavefront": ("lf_wavefront.cu", "lf_wavefront",
+                     [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP]),
+}
+
+_fns = None
+_lock = threading.Lock()
+#: seconds the last build took, and nvcc's -Xptxas -v report per kernel
+build_seconds = None
+ptxas_report = {}
+
+
+def _nvcc():
+    exe = shutil.which("nvcc")
+    if exe is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+        if CUDA_HOME:
+            exe = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if exe is None or not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def _so_path(name):
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name):
+    so = _so_path(name)
+    src = os.path.join(CSRC, KERNELS[name][0])
+    return not os.path.exists(so) or os.path.getmtime(so) < \
+        os.path.getmtime(src)
+
+
+def _build(names):
+    """Run one nvcc per source, all at once; raise with the compiler's
+    output if any fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        src = os.path.join(CSRC, KERNELS[name][0])
+        tmp = f"{_so_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        ptxas_report[name] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {KERNELS[name][0]}:\n{out}")
+        else:
+            os.replace(tmp, _so_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load():
+    """Build (if stale) and bind every kernel; returns {name: C function}.
+    Raises RuntimeError if nvcc is missing or a build fails."""
+    global _fns, build_seconds
+    with _lock:
+        if _fns is not None:
+            return _fns
+        t0 = time.perf_counter()
+        stale = [n for n in KERNELS if _stale(n)]
+        if stale:
+            _build(stale)
+        build_seconds = time.perf_counter() - t0
+        fns = {}
+        for name, (_src, entry, argtypes) in KERNELS.items():
+            fn = getattr(ctypes.CDLL(_so_path(name)), entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _fns = fns
+        return _fns
+
+
+def check(rc, name):
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {rc}")
