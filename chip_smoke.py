@@ -9,8 +9,10 @@ e.g. an H100) and nvcc:
 It builds the hand-written kernels from csrc/, holds each against its
 plain PyTorch version, decodes tests/vectors/bench_1080p.ivf (30 frames,
 1920x1080) through the port's entry point on the card with a per-frame
-MD5 gate, then six more conformance streams, and times the decode and the
-kernels. Any failure raises (exit code != 0). It prints, in order:
+MD5 gate, then six more conformance streams, encodes four of the decoded
+1080p frames (1 key + 3 inter) through TorchEncoder on the card with a
+closed-loop gate, and times decode, encode and the kernels. Any failure
+raises (exit code != 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
   * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
@@ -21,6 +23,16 @@ kernels. Any failure raises (exit code != 0). It prints, in order:
   * decode fps (median of 3 timed runs after one warm-up) and each
     kernel's per-frame time from CUDA events, beside the card's name and
     power limit;
+  * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1)
+    and at 68x120 on a decoded 1080p frame: exact equality; ties on a
+    constant plane resolved on the card as on the CPU;
+  * a QCIF clip encoded on the card and on the CPU: payload bytes equal;
+  * the 1080p encode: bytes, luma PSNR, K3/K2 launches per frame, the
+    payload decoded by TorchDecoder on the card equal to the encoder's
+    reconstruction; full_search through K3 equal to full_search through
+    the plain version on an inter frame's tensors;
+  * encode frames/s over the inter frames, the keyframe's seconds, the
+    encode wavefront's seconds on the keyframe, K3's time per launch;
   * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -87,7 +99,11 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
     from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    from libvpx_opencl_tpu_torch.models import wavefront as EW
     from libvpx_opencl_tpu_torch.ops import _cuda
+    from libvpx_opencl_tpu_torch.ops import me as ME
+    from libvpx_opencl_tpu_torch.ops import me_sad
     from libvpx_opencl_tpu_torch.ops import wavefront as W
     from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
     from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
@@ -110,7 +126,7 @@ def main():
                 for a in arrs]
 
     # -- K1 / K2 vs plain on random cases --------------------------------
-    err = {"intra_wavefront": 0, "lf_wavefront": 0}
+    err = {"intra_wavefront": 0, "lf_wavefront": 0, "sad_grid": 0}
     for R, C in GEOMS:
         rng = np.random.default_rng(R * 1000 + C)
         args = to_dev(intra_case(np, rng, R, C))
@@ -139,8 +155,11 @@ def main():
     for name in W.launches:
         W.launches[name] = 0
     per_frame = []
+    src_frames = []               # decoded frames 0-3: the encoder's input
     n = 0
     for i, planes in enumerate(TD.decode_ivf_torch(bench, device="cuda")):
+        if i < 4:
+            src_frames.append(tuple(np.array(p) for p in planes))
         # the generator yields once the frame's dispatch has finished
         per_frame.append(tuple(W.launches[k] - sum(p[j] for p in per_frame)
                                for j, k in enumerate(("intra_wavefront",
@@ -289,6 +308,221 @@ def main():
     print(f"K2 lf_wavefront: {k_ms['k2']:.4f} ms/frame "
           f"({W.diag_launches(R, C)} launches) [{card}]", flush=True)
 
+    # -- K3 vs plain ------------------------------------------------------
+    def search_case(rng, R, C, plane=None, src=None):
+        """Bordered plane, source blocks, pre-clamped non-zero centres and
+        MB positions of an R x C grid (as TorchEncoder makes them)."""
+        N = R * C
+        if plane is None:
+            plane = rng.integers(0, 256, (R * 16 + 64, C * 16 + 64)) \
+                .astype(np.uint8)
+            src = rng.integers(0, 256, (N, 16, 16)).astype(np.int32)
+        mbr, mbc = np.arange(N) // C, np.arange(N) % C
+        lo = np.stack([-(mbr * 16) - 16, -(mbc * 16) - 16], 1)
+        hi = np.stack([(R - 1 - mbr) * 16 + 16, (C - 1 - mbc) * 16 + 16], 1)
+        cen = np.clip(rng.integers(-40, 41, (N, 2)), lo, hi).astype(np.int32)
+        pos = np.stack([32 + 16 * mbr, 32 + 16 * mbc], 1).astype(np.int32)
+        return plane, src, cen, pos
+
+    def bordered(vis, R, C):
+        """Visible luma plane -> MB-aligned plane with an edge-extended
+        border of 32."""
+        return np.pad(vis, ((32, 32 + R * 16 - vis.shape[0]),
+                            (32, 32 + C * 16 - vis.shape[1])), mode="edge")
+
+    def k3_vs_plain(label, plane, src, cen, pos):
+        wy = pos[:, 0] + cen[:, 0] - ME.RNG
+        wx = pos[:, 1] + cen[:, 1] - ME.RNG
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (plane, wy, wx, src)]
+        got = me_sad.sad_grid(*args)
+        torch.cuda.synchronize()
+        d = int((got - me_sad.sad_grid_plain(*args)).abs().max())
+        print(f"K3 vs plain {label}: max_abs_diff {d}", flush=True)
+        err["sad_grid"] = max(err["sad_grid"], d)
+        if d:
+            fail(f"K3 disagrees with sad_grid_plain at {label}")
+
+    for R, C in [(6, 8), (3, 3), (1, 5), (5, 1)]:
+        k3_vs_plain(f"{R}x{C} (N={R * C})",
+                    *search_case(np.random.default_rng(R * 1000 + C), R, C))
+    R, C = 68, 120
+    ref_pl = bordered(src_frames[0][0], R, C)
+    blocks = bordered(src_frames[1][0], R, C)[32:-32, 32:-32] \
+        .reshape(R, 16, C, 16).transpose(0, 2, 1, 3).reshape(R * C, 16, 16) \
+        .astype(np.int32)
+    k3_vs_plain("68x120 (N=8160) on a decoded 1080p frame", *search_case(
+        np.random.default_rng(68120), R, C, ref_pl, blocks))
+    # ties: a constant plane gives equal SADs at every offset; the card
+    # must pick the same (first) one as the CPU
+    flat = (np.full((4 * 16 + 64, 6 * 16 + 64), 90, np.uint8),
+            np.full((24, 16, 16), 90, np.int32))
+    _, _, cen, pos = search_case(np.random.default_rng(46), 4, 6, *flat)
+    on_cpu = [torch.from_numpy(a) for a in (*flat, cen, pos)]
+    mv_c, sad_c = ME.full_search(*on_cpu, step=1)
+    mv_g, sad_g = ME.full_search(*(t.to(dev) for t in on_cpu), step=1)
+    if not (torch.equal(mv_g.cpu(), mv_c) and torch.equal(sad_g.cpu(), sad_c)):
+        fail("full_search resolves ties differently on the card")
+    print("K3 ties on a constant plane: card == CPU", flush=True)
+
+    # -- small reference: the card's payloads equal the CPU's --------------
+    def synth_clip(w, h, n):
+        """A moving gradient with a moving bright box, n frames."""
+        yy, xx = np.mgrid[0:h, 0:w]
+        clip = []
+        for t in range(n):
+            y = ((xx + yy + 7 * t) % 220 + 10).astype(np.uint8)
+            y[20:60, 30 + 3 * t:70 + 3 * t] = 200
+            clip.append((y, ((xx[::2, ::2] // 2 + t) % 255).astype(np.uint8),
+                         ((yy[::2, ::2] // 2 + 255 - t) % 255)
+                         .astype(np.uint8)))
+        return clip
+
+    small = {}
+    for where in ("cpu", "cuda"):
+        enc = TE.TorchEncoder(176, 144, qindex=24, device=where)
+        enc.sf = TE.SLICE2_SF
+        small[where] = [enc.encode_frame(*f) for f in synth_clip(176, 144, 3)]
+    if small["cpu"] != small["cuda"]:
+        fail("QCIF payloads encoded on the card differ from the CPU's")
+    print(f"encode QCIF 3 frames: card payloads == CPU payloads "
+          f"({[len(p) for p in small['cuda']]} bytes)", flush=True)
+
+    # -- main path 2: encode 1 key + 3 inter 1080p frames ------------------
+    def new_encoder():
+        enc = TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
+        enc.sf = TE.SLICE2_SF
+        return enc
+
+    def refs_searched(enc):
+        return 1 + (enc.ref_gold is not enc.ref_last) + (
+            enc.ref_alt is not enc.ref_last
+            and enc.ref_alt is not enc.ref_gold)
+
+    def psnr(a, b):
+        mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+        return 10 * np.log10(255 ** 2 / mse) if mse > 0 else 99.0
+
+    for name in W.launches:
+        W.launches[name] = 0
+    enc = new_encoder()
+    dec = TD.TorchDecoder(device="cuda")
+    R, C = enc.R, enc.C
+    enc_launches = {"sad_grid": 0, "lf_wavefront": 0}
+    for i, frame in enumerate(src_frames):
+        want_k3 = refs_searched(enc) if i else 0
+        before = dict(W.launches)
+        payload = enc.encode_frame(*frame)
+        k3 = W.launches["sad_grid"] - before["sad_grid"]
+        k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
+        enc_launches["sad_grid"] += k3
+        enc_launches["lf_wavefront"] += k2
+        # the decoder that checks the payload launches K1 and K2 too:
+        # those launches are a check and are not counted
+        show, planes = dec.decode_frame(payload)
+        recon = enc.ref_last.visible()
+        p = psnr(frame[0], recon[0])
+        print(f"encode 1080p frame {i} ({'key' if i == 0 else 'inter'}): "
+              f"{len(payload)} bytes, luma PSNR {p:.2f} dB, K3 launches "
+              f"{k3}, K2 launches {k2}", flush=True)
+        if k3 != want_k3 or k2 != W.diag_launches(R, C):
+            fail(f"encode frame {i}: K3 launched {k3} times for {want_k3} "
+                 f"references, K2 {k2} times for {W.diag_launches(R, C)} "
+                 f"diagonals")
+        if not show or any(not np.array_equal(a, b)
+                           for a, b in zip(planes, recon)):
+            fail(f"encode frame {i}: the decoded payload differs from the "
+                 f"encoder's reconstruction")
+        if p < 30.0:
+            fail(f"encode frame {i}: luma PSNR {p:.2f} dB < 30 dB")
+    for name, count in enc_launches.items():
+        launches[name] += count
+
+    # -- encode times (the run above was the warm-up) ----------------------
+    # The encode wavefront is timed inside the same run (two more
+    # synchronisations per frame), and full_search's tensors are kept for
+    # the route comparison below.
+    enc = new_encoder()
+    ew_fn, fs_fn = EW.encode_recon_planes, ME.full_search
+    frame_s, ew_s, ew_levels, fs_args = [], [], [], []
+
+    def probe_ew(*a):
+        # a = (R, C, three source and three prediction tensors, mode,
+        # uv_mode, intra, ...): batches of intra MBs the wavefront walks
+        ew_levels.append(int(EW.intra_levels(
+            a[0], a[1], a[10].cpu().numpy()).max()) + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ew_fn(*a)
+        torch.cuda.synchronize()
+        ew_s.append(time.perf_counter() - t0)
+        return out
+
+    def probe_fs(*a, **kw):
+        fs_args.append((a, kw))
+        return fs_fn(*a, **kw)
+
+    EW.encode_recon_planes, ME.full_search = probe_ew, probe_fs
+    try:
+        for frame in src_frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc.encode_frame(*frame)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+    finally:
+        EW.encode_recon_planes, ME.full_search = ew_fn, fs_fn
+    enc_fps = (len(frame_s) - 1) / sum(frame_s[1:])
+    print(f"encode 1080p: {enc_fps:.4f} frames/s over {len(frame_s) - 1} "
+          f"inter frames ({[round(x, 3) for x in frame_s[1:]]} s), keyframe "
+          f"{frame_s[0]:.3f} s [{card}]", flush=True)
+    print(f"encode wavefront (encode_recon_planes) of those frames: "
+          f"keyframe {ew_s[0]:.3f} s, inter "
+          f"{[round(x, 3) for x in ew_s[1:]]} s; intra levels walked "
+          f"{ew_levels} [{card}]", flush=True)
+
+    # K3 route vs plain route on inter frame 1's tensors
+    fa, fkw = fs_args[0]
+    mv_k, sad_k = ME.full_search(*fa, **fkw)
+    sad_fn = me_sad.sad_grid
+    me_sad.sad_grid = me_sad.sad_grid_plain
+    try:
+        mv_p, sad_p = ME.full_search(*fa, **fkw)
+    finally:
+        me_sad.sad_grid = sad_fn
+    if not (torch.equal(mv_k, mv_p) and torch.equal(sad_k, sad_p)):
+        fail("full_search through K3 differs from full_search through "
+             "sad_grid_plain on inter frame 1")
+    print("full_search on inter frame 1: K3 route == plain route "
+          f"({int((mv_k != 0).any(1).sum())} of {mv_k.shape[0]} MVs "
+          "non-zero)", flush=True)
+    ref_plane, yb, centers, mb_pos = fa
+    k3_args = (ref_plane, mb_pos[:, 0] + centers[:, 0] - ME.RNG,
+               mb_pos[:, 1] + centers[:, 1] - ME.RNG, yb)
+    got = me_sad.sad_grid(*k3_args)
+    want = me_sad.sad_grid_plain(*k3_args)
+    err["sad_grid"] = max(err["sad_grid"], int((got - want).abs().max()))
+    if err["sad_grid"]:
+        fail("K3 disagrees with sad_grid_plain on inter frame 1")
+    for _ in range(3):
+        me_sad.sad_grid(*k3_args)
+    e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    e0.record()
+    for _ in range(20):
+        me_sad.sad_grid(*k3_args)
+    e1.record()
+    torch.cuda.synchronize()
+    k_ms["k3"] = e0.elapsed_time(e1) / 20
+    plain_ms["k3"] = [time_plain(lambda: me_sad.sad_grid_plain(*k3_args))
+                      for _ in range(2)][1:]
+    n_mb, n_off = yb.shape[0], (2 * ME.RNG + 1) ** 2
+    k3_bounds = [((ref_plane.numel() + n_mb * (256 * 4 + 8)
+                   + n_mb * n_off * 4) / HBM_BYTES_PER_S,
+                  n_mb * n_off * 256 * 3 / INT_OPS_PER_S)]
+    print(f"K3 sad_grid: {k_ms['k3']:.4f} ms/launch (N={n_mb}), plain "
+          f"{plain_ms['k3'][0]:.1f} ms, bound "
+          f"{max(k3_bounds[0]) * 1e3:.4f} ms [{card}]", flush=True)
+
     kernels = []
     for key, name, src, replaces, bs in (
             ("k1", "intra_wavefront", "libvpx_opencl_tpu_torch/csrc/"
@@ -296,7 +530,9 @@ def main():
              ":148", k1_bounds),
             ("k2", "lf_wavefront", "libvpx_opencl_tpu_torch/csrc/"
              "lf_wavefront.cu", "libvpx_opencl_tpu/ops/pallas_wavefront.py"
-             ":407", k2_bounds)):
+             ":407", k2_bounds),
+            ("k3", "sad_grid", "libvpx_opencl_tpu_torch/csrc/sad_grid.cu",
+             "libvpx_opencl_tpu/ops/me_pallas.py:48", k3_bounds)):
         b_ms, b_by = bound(bs)
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -6,12 +6,16 @@ the plain tensor code, hand-written CUDA kernels (csrc/) for what the JAX
 package wrote in Pallas for the TPU. It imports nothing of JAX or of the
 JAX package; the host modules it needs are its own copies.
 
-  utils/   — IVF container, MD5 conformance oracle, native entropy runtime
-  ops/     — tables, transforms, prediction, loop-filter math, the K1/K2
-             wavefront wrappers and their CUDA loader
-  models/  — bool decoder, RefDecoder host entropy layer, TorchDecoder
+  utils/   — IVF container, MD5 conformance oracle, native entropy and
+             pack runtime
+  ops/     — tables, transforms and quantizers, prediction, loop-filter
+             math, motion search, RD costing, the K1/K2 wavefront and K3
+             SAD-grid wrappers and their CUDA loader
+  models/  — bool coder, RefDecoder host entropy layer, TorchDecoder; host
+             Encoder with its RD tables and bool encoder, the encode
+             wavefront, TorchEncoder
   csrc/    — CUDA kernels (built with nvcc on first use) and the host C++
-             entropy runtime (built with g++ on first use)
+             entropy and pack runtime (built with g++ on first use)
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """

@@ -553,9 +553,7 @@ class TorchDecoder(RefDecoder):
         return y_mv, uv_mv
 
 
-def _plane_shapes(R, C):
-    return ((R * 16 + 2 * B, C * 16 + 2 * B), (R * 8 + 2 * B2, C * 8 + 2 * B2),
-            (R * 8 + 2 * B2, C * 8 + 2 * B2))
+_plane_shapes = W.plane_shapes
 
 
 def load_reference_ring(dec, last, golden, altref):

@@ -34,7 +34,13 @@ KERNELS = {
                          _I, _VP]),
     "lf_wavefront": ("lf_wavefront.cu", "lf_wavefront",
                      [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP]),
+    "sad_grid": ("sad_grid.cu", "sad_grid",
+                 [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _VP]),
 }
+
+#: kernel launches made by the wrappers, per kernel; a wrapper adds to its
+#: count only where it launches its kernel
+launches = {name: 0 for name in KERNELS}
 
 _fns = None
 _lock = threading.Lock()

@@ -1,0 +1,212 @@
+"""Device rate-distortion costing (PyTorch): batched token rates and
+transform-domain distortions of quantized blocks under the frame's
+entropy model.
+
+Port of libvpx_opencl_tpu/ops/rd_device.py without trellis_batch (the
+reference's per-block costing: cost_coeffs rdopt.c:503-534,
+vp8_block_error / vp8_mbblock_error): every candidate mode of every
+macroblock is costed at once as whole-frame tensor ops.
+
+What differs from the JAX file, and why the numbers do not:
+  * the JAX file turns small-table lookups into one-hot contractions over
+    float32 cost tables, because a TPU's matrix unit likes them; every
+    value is an integer below 2^24, so the integer gathers used here give
+    the same rates;
+  * token ids and extra-bit costs come from lookup tables built on the
+    host with the JAX file's arithmetic (one gather instead of some
+    hundred elementwise passes);
+  * squared-error sums are taken exactly in int64 and rounded to float32
+    once, so the result does not depend on a device's reduction order.
+    The JAX file sums float32 squares, which is exact (and then equal)
+    while the sum stays below 2^24.
+
+`rdc` keeps the JAX file's float32 type and operation order.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..models import rdopt
+from . import tables as T
+from . import transforms as tf
+
+ZZ = tuple(int(v) for v in T.ZIGZAG)           # scan -> raster
+BANDS = tuple(int(v) for v in T.COEF_BANDS)    # scan -> band
+CAT_MIN = (5, 7, 11, 19, 35, 67)
+EOB = 11
+
+# per-category extra-bit costs (fixed probs, tokenize.c:36-94)
+_CAT_BIT_COSTS = tuple(
+    tuple((rdopt.cost0(p), rdopt.cost1(p)) for p in probs)
+    for probs in rdopt.CAT_PROBS)
+_CAT6_SPAN = 1 << len(_CAT_BIT_COSTS[5])        # extra-bit values of cat6
+_N_VALUES = CAT_MIN[5] + _CAT6_SPAN
+
+
+def _token_of(a):
+    """DCT token id from |value| (fill_value_tokens thresholds), numpy."""
+    t = np.minimum(a, 4)
+    for k, lo in enumerate(CAT_MIN):
+        t = np.where(a >= lo, 5 + k, t)
+    return t
+
+
+def _value_cost(a, tok):
+    """Extra-bit + sign cost of a coefficient value (DCT_VALUE_COST dual:
+    zero for literal tokens 0-4, category bits + half-prob sign above),
+    numpy."""
+    cost = np.zeros_like(a)
+    for k in range(6):
+        extra = a - CAT_MIN[k]
+        bits = _CAT_BIT_COSTS[k]
+        nb = len(bits)
+        ck = np.zeros_like(a)
+        for j, (c0, c1) in enumerate(bits):
+            bit = (extra >> (nb - 1 - j)) & 1
+            ck = ck + np.where(bit == 1, c1, c0)
+        cost = np.where(tok == 5 + k, ck + 256, cost)
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def _value_tables(device):
+    """(token id, value cost) int32 lookup tables over the value index of
+    `_value_index`, on `device`."""
+    a = np.arange(_N_VALUES, dtype=np.int64)
+    tok = _token_of(a)
+    return (torch.tensor(tok, dtype=torch.int32, device=device),
+            torch.tensor(_value_cost(a, tok), dtype=torch.int32,
+                         device=device))
+
+
+def _value_index(a):
+    """Index of |value| `a` into the value tables: the value itself below
+    cat6, and cat6's low extra bits above (its cost reads no others)."""
+    return torch.where(a < CAT_MIN[5], a,
+                       CAT_MIN[5] + ((a - CAT_MIN[5]) & (_CAT6_SPAN - 1)))
+
+
+def banded_token_costs(tc, btype):
+    """Host helper: [8,3,12] token-cost table for one block type, expanded
+    to scan position -> [16,3,12] int32 (cost_coeffs indexes by
+    COEF_BANDS[c])."""
+    t = np.asarray(tc[btype], np.int64)[list(BANDS)]   # [16,3,12]
+    return torch.from_numpy(t.astype(np.int32))
+
+
+def block_rate(q, tcb, start, ctx0):
+    """Token rate of quantized blocks (cost_coeffs rdopt.c:503-534).
+
+    q [..., 16] raster levels; tcb [16,3,12] int32 banded costs on q's
+    device; start: 0, or 1 for Y-with-Y2; ctx0 entropy context 0..2, an int
+    or a [...] tensor.
+    Returns (rate [...] int32, nz [...] int32)."""
+    dev = q.device
+    qz = q[..., ZZ].to(torch.int32)
+    a = qz.abs()
+    toktab, valtab = _value_tables(dev)
+    vi = _value_index(a).long()
+    tok = toktab[vi].long()
+    scan = torch.arange(16, device=dev)
+    eob = torch.where(qz != 0, scan + 1, 0).amax(-1).clamp(min=start)
+    # previous-token class per scan position (PREV_TOKEN_CLASS == min(a,2))
+    pt = torch.cat([torch.zeros_like(a[..., :1]),
+                    a[..., :-1].clamp(max=2)], -1).long()
+    pt[..., start] = ctx0 if isinstance(ctx0, int) else ctx0.long()
+    base = tcb[scan, pt, tok]
+    inside = (scan >= start) & (scan < eob[..., None])
+    rate = torch.where(inside, base + valtab[vi], 0).sum(-1)
+    # EOB token cost at scan position == eob (when eob < 16)
+    at_eob = scan == eob[..., None]
+    rate = rate + torch.where(at_eob, tcb[scan, pt, EOB], 0).sum(-1)
+    return rate.to(torch.int32), (eob > start).to(torch.int32)
+
+
+def _mb_blocks(resid):
+    """[..., 16, 16] pixel residual -> [..., 16, 4, 4]: the MB's sixteen
+    4x4 blocks in raster order."""
+    s = resid.shape[:-2]
+    x = resid.reshape(*s, 4, 4, 4, 4)          # (by, py, bx, px)
+    return x.transpose(-3, -2).reshape(*s, 16, 4, 4)
+
+
+def _dq_vec(dq):
+    """[..., 2] (dc, ac) -> [..., 16] int64 per-coefficient factors."""
+    return torch.cat([dq[..., 0:1], dq[..., 1:2].expand(*dq.shape[:-1], 15)],
+                     -1).long()
+
+
+def _sq_err(coefs, q, dqv):
+    """Exact sum over the last axis of (coefs - q*dqv)^2, int64."""
+    e = coefs.long() - q.long() * dqv
+    return (e * e).sum(-1)
+
+
+def _ctx_grid(nz, g):
+    """Entropy contexts chained inside the MB: above + left non-zero flags
+    over a g x g block grid (external context 0). nz [..., g*g]."""
+    nzg = nz.reshape(*nz.shape[:-1], g, g)
+    above = torch.cat([torch.zeros_like(nzg[..., :1, :]),
+                       nzg[..., :-1, :]], -2)
+    left = torch.cat([torch.zeros_like(nzg[..., :, :1]),
+                      nzg[..., :, :-1]], -1)
+    return (above + left).reshape(nz.shape)
+
+
+def rd_y16(resid, dq1, dq2, qidx, tcb0, tcb1):
+    """Whole-MB Y rate/distortion under the has_y2 layout
+    (_quant_y16 + _cost_y dual, regular zbin quant: the quantizer the
+    encode wavefront applies).
+
+    resid [..., 16, 16] int32; dq1/dq2 [..., 2]; qidx [...].
+    Returns (rate [...] int32, dist [...] float32 transform-domain error
+    before the >>2, nz16 [..., 16] per-block non-zero flags)."""
+    blocks = _mb_blocks(resid)
+    coefs = tf.fdct4x4_batch(blocks).reshape(*blocks.shape[:-2], 16)
+    y2 = tf.walsh4x4_batch(coefs[..., :, 0])
+    q, eobs = tf.regular_quant_batch(coefs, dq1[..., None, :],
+                                     qidx[..., None], True)
+    qy2, _ = tf.regular_quant_batch(y2, dq2, qidx, False)
+    # distortion: AC error for the 16 Y blocks + full Y2 error
+    ac = dq1[..., None, 1:2].long()
+    dist = _sq_err(coefs[..., 1:], q[..., 1:], ac).sum(-1) + \
+        _sq_err(y2, qy2, _dq_vec(dq2))
+    nz = (eobs.clamp(min=1) > 1).to(torch.int32)        # start=1 blocks
+    ry, _ = block_rate(q, tcb0, 1, _ctx_grid(nz, 4))
+    r2, _ = block_rate(qy2, tcb1, 0, 0)
+    return ry.sum(-1).to(torch.int32) + r2, dist.to(torch.float32), nz
+
+
+def rd_uv(resid_u, resid_v, dq_uv, qidx, tcb2):
+    """Chroma rate/distortion (_quant_uv + _cost_uv dual).
+
+    resid_u/resid_v [..., 8, 8] int32; dq_uv [..., 2]; qidx [...].
+    Returns (rate [...] int32, dist [...] float32)."""
+    rate = dist = None
+    dqv = _dq_vec(dq_uv)[..., None, :]
+    for resid in (resid_u, resid_v):
+        s = resid.shape[:-2]
+        x = resid.reshape(*s, 2, 4, 2, 4).transpose(-3, -2) \
+            .reshape(*s, 4, 4, 4)
+        coefs = tf.fdct4x4_batch(x).reshape(*s, 4, 16)
+        q, eobs = tf.regular_quant_batch(coefs, dq_uv[..., None, :],
+                                         qidx[..., None], False)
+        d = _sq_err(coefs, q, dqv).sum(-1).to(torch.float32)
+        nz = (eobs > 0).to(torch.int32)
+        r, _ = block_rate(q, tcb2, 0, _ctx_grid(nz, 2))
+        r = r.sum(-1).to(torch.int32)
+        rate = r if rate is None else rate + r
+        dist = d if dist is None else dist + d
+    return rate, dist
+
+
+def rdc(rate, dist, rdmult, rddiv):
+    """RDCOST (rdopt.h): ((128 + rate*rdmult) >> 8) + rddiv*dist, in
+    float32 with the JAX file's operation order and no fused
+    multiply-add (decision only: the pack layer recomputes exact rates).
+    rdmult, rddiv: float32 scalars (0-dim tensors or Python numbers)."""
+    r = torch.as_tensor(rate).to(torch.float32)
+    return torch.floor((128.0 + r * rdmult) / 256.0) + rddiv * dist

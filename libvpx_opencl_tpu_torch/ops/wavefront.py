@@ -44,9 +44,8 @@ B_PRED_M = 4
 INTRA_COLS = 20            # mode, uv_mode, intra, unused, bmodes[16]
 LF_COLS = 8                # flevel, mblim, blim, lim, hev, noskip, unused x2
 
-#: kernel launches made by the plane-level wrappers, per kernel; a wrapper
-#: adds to its count only where it launches its kernel
-launches = {"intra_wavefront": 0, "lf_wavefront": 0}
+#: kernel launches per kernel (shared with every kernel wrapper)
+launches = _cuda.launches
 
 
 def diag_depth(R, C):
@@ -70,14 +69,18 @@ def _diag_mbs(R, C, d, device):
 # ---------------------------------------------------------------------------
 # layout helpers
 
+def plane_shapes(R, C):
+    """Shapes of the bordered (y, u, v) planes of an R x C MB grid."""
+    b, b2 = BORDER, BORDER // 2
+    return ((R * 16 + 2 * b, C * 16 + 2 * b),
+            (R * 8 + 2 * b2, C * 8 + 2 * b2),
+            (R * 8 + 2 * b2, C * 8 + 2 * b2))
+
+
 def alloc_planes(R, C, device):
     """Uninitialised bordered uint8 planes (y, u, v) for an R x C MB grid."""
-    b, b2 = BORDER, BORDER // 2
-    y = torch.empty(R * 16 + 2 * b, C * 16 + 2 * b, dtype=torch.uint8,
-                    device=device)
-    u = torch.empty(R * 8 + 2 * b2, C * 8 + 2 * b2, dtype=torch.uint8,
-                    device=device)
-    return y, u, torch.empty_like(u)
+    return tuple(torch.empty(shape, dtype=torch.uint8, device=device)
+                 for shape in plane_shapes(R, C))
 
 
 def mb_view(plane, R, C, n):

@@ -1,5 +1,7 @@
 """ctypes binding + on-demand build of the native host entropy runtime
-(csrc/host/vp8_entropy.cpp: mode/MV decode and detokenize).
+(csrc/host/vp8_entropy.cpp: mode/MV decode and detokenize;
+csrc/host/vp8_pack.cpp and vp8_pack_modes.cpp: the encoder's token and
+mode packing, MV->mode mapping and branch counting).
 
 The shared library is compiled with g++ (-O3 -march=native, as the JAX
 package builds its copy) on first use into the package's own build
@@ -18,7 +20,9 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc", "host")
-_SRCS = [os.path.join(_SRC_DIR, "vp8_entropy.cpp")]
+_SRCS = [os.path.join(_SRC_DIR, "vp8_entropy.cpp"),
+         os.path.join(_SRC_DIR, "vp8_pack.cpp"),
+         os.path.join(_SRC_DIR, "vp8_pack_modes.cpp")]
 _DEPS = _SRCS + [os.path.join(_SRC_DIR, "vp8_tables.h")]
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SO = os.path.join(BUILD_DIR, "libvp8entropy.so")
@@ -73,6 +77,27 @@ def get_lib():
         lib.vp8e_detokenize.argtypes = [
             u8, i64, i64, ctypes.c_int, u8, ctypes.c_int, ctypes.c_int,
             i32, i32, i16, i32]
+        lib.vp8e_pack_coeffs.restype = ctypes.c_int
+        lib.vp8e_pack_coeffs.argtypes = [
+            i16, ctypes.c_int64, u8, u8, i32, i16, ctypes.c_int64, i64]
+        lib.vp8e_count_tokens.restype = ctypes.c_int
+        lib.vp8e_count_tokens.argtypes = [
+            i16, i32, i32, i32, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64]
+        lib.vp8e_pack_tokens.restype = ctypes.c_int64
+        lib.vp8e_pack_tokens.argtypes = [
+            i16, i32, i32, i32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            u8, ctypes.c_int, u8, ctypes.c_int64, i64]
+        ci = ctypes.c_int
+        lib.vp8e_map_mv_modes.restype = ci
+        lib.vp8e_map_mv_modes.argtypes = [
+            ci, ci, i32, i32, i32, i32, i32, i32, i32]
+        lib.vp8e_count_modes.restype = ci
+        lib.vp8e_count_modes.argtypes = [
+            ci, ci, i32, i32, i32, i32, i32, i32, i32, i32, i64, i64, i64]
+        lib.vp8e_pack_modes.restype = ctypes.c_int64
+        lib.vp8e_pack_modes.argtypes = [
+            ci, ci, ci, i32, i32, i32, i32, i32, i32, i32, i32, i32, ci, u8,
+            ci, ci, ci, ci, ci, u8, u8, u8, u8, ctypes.c_int64, i64]
         _lib = lib
         return _lib
 
@@ -149,3 +174,188 @@ def detokenize_native(lib, dec):
     # int16 end-to-end: the device widens to int32 itself
     dec.qcoeff = qcoeff.reshape(R, C, 25, 16)
     dec.eobs = eobs.reshape(R, C, 25)
+
+
+class _PackScratch:
+    """Reusable output buffers for vp8e_pack_coeffs (per block-count)."""
+
+    def __init__(self, cap):
+        self.cap = cap
+        self.bitmap = np.empty((cap + 7) // 8, np.uint8)
+        self.nib = np.empty((cap, 8), np.uint8)
+        self.esc_idx = np.empty(16 * cap, np.int32)
+        self.esc_val = np.empty(16 * cap, np.int16)
+        self.counts = np.zeros(2, np.int64)
+
+
+_pack_scratch = {}
+
+
+def pack_coeffs_native(lib, qflat):
+    """Nibble-pack the non-zero blocks of coefficients [nblocks, 16] i16.
+
+    Returns (bitmap, nib[:K], esc_idx[:E], esc_val[:E]) as views into
+    reusable scratch (caller must copy anything it keeps past the next
+    call), or None when the native library rejects the input.  bitmap has
+    bit b set (little-endian within bytes) when block b is non-zero."""
+    nblocks = qflat.shape[0]
+    sc = _pack_scratch.get(nblocks)
+    if sc is None:
+        sc = _pack_scratch[nblocks] = _PackScratch(nblocks)
+    qflat = np.ascontiguousarray(qflat, dtype=np.int16)
+    rc = lib.vp8e_pack_coeffs(
+        _p(qflat, ctypes.c_int16), nblocks,
+        _p(sc.bitmap, ctypes.c_uint8), _p(sc.nib, ctypes.c_uint8),
+        _p(sc.esc_idx, ctypes.c_int32), _p(sc.esc_val, ctypes.c_int16),
+        16 * nblocks, _p(sc.counts, ctypes.c_int64))
+    if rc != 0:
+        return None
+    K, E = int(sc.counts[0]), int(sc.counts[1])
+    return (sc.bitmap, sc.nib[:K], sc.esc_idx[:E], sc.esc_val[:E])
+
+
+def count_tokens_native(lib, qcoeff16, eobs, modes, skip,
+                        mb_no_coeff_skip):
+    """Whole-frame token branch counting in C++ (the _count_tokens role).
+
+    qcoeff16 [R,C,25,16] i16 contiguous; eobs [R,C,25] i32; modes [R,C]
+    i32 (per-MB ymode incl. B_PRED=4/SPLITMV=9); skip [R,C] i32.
+    Returns counts [4,8,3,11,2] int64."""
+    R, C = modes.shape
+    counts = np.zeros((4, 8, 3, 11, 2), np.int64)
+    lib.vp8e_count_tokens(
+        _p(qcoeff16, ctypes.c_int16), _p(eobs, ctypes.c_int32),
+        _p(modes, ctypes.c_int32), _p(skip, ctypes.c_int32),
+        R, C, int(mb_no_coeff_skip), _p(counts, ctypes.c_int64))
+    return counts
+
+
+def pack_tokens_native(lib, qcoeff16, eobs, modes, skip, mb_no_coeff_skip,
+                       coef_probs, nparts):
+    """Whole-frame token packing in C++ (vp8_pack_tokens_into_partitions
+    role).  Returns the list of per-partition byte strings, or None if
+    the output buffer overflowed (caller falls back to Python)."""
+    R, C = modes.shape
+    cap = int(qcoeff16.size * 2 + 4096 * nparts)
+    out = np.empty(cap, np.uint8)
+    sizes = np.zeros(nparts, np.int64)
+    cp = np.ascontiguousarray(coef_probs.astype(np.uint8))
+    total = lib.vp8e_pack_tokens(
+        _p(qcoeff16, ctypes.c_int16), _p(eobs, ctypes.c_int32),
+        _p(modes, ctypes.c_int32), _p(skip, ctypes.c_int32),
+        R, C, int(mb_no_coeff_skip), _p(cp, ctypes.c_uint8), nparts,
+        _p(out, ctypes.c_uint8), cap, _p(sizes, ctypes.c_int64))
+    if total < 0:
+        return None
+    parts = []
+    off = 0
+    for p in range(nparts):
+        n = int(sizes[p])
+        parts.append(out[off:off + n].tobytes())
+        off += n
+    return parts
+
+
+def _mode_grids(enc):
+    """Contiguous int32 views of the encoder's padded mode grids (zeros
+    where a path never populates them, e.g. bmv on the device encoder)."""
+    R, C = enc.R, enc.C
+    z_bmv = np.zeros((R + 1, C + 1, 16, 2), np.int32)
+    z_sp = np.zeros((R, C), np.int32)
+    g = dict(
+        mode=np.ascontiguousarray(enc.mode.astype(np.int32)),
+        reff=np.ascontiguousarray(enc.reff.astype(np.int32)),
+        mv=np.ascontiguousarray(enc.mv.astype(np.int32)),
+        bmode=np.ascontiguousarray(enc.bmode.astype(np.int32)),
+        bmv=np.ascontiguousarray(
+            getattr(enc, "bmv", z_bmv).astype(np.int32)),
+        split_part=np.ascontiguousarray(
+            getattr(enc, "split_part", z_sp).astype(np.int32)),
+        skip=np.ascontiguousarray(enc.skip.astype(np.int32)),
+        uvmode=np.ascontiguousarray(enc.uvmode.astype(np.int32)),
+    )
+    return g
+
+
+def map_mv_modes_native(lib, enc):
+    """Exact near-MV-lattice MV->mode mapping for all inter MBs in C++
+    (replaces the per-MB Python _find_near loop); updates enc.mode."""
+    g = _mode_grids(enc)
+    lib.vp8e_map_mv_modes(
+        enc.R, enc.C, _p(g["mode"], ctypes.c_int32),
+        _p(g["reff"], ctypes.c_int32), _p(g["mv"], ctypes.c_int32),
+        _p(g["bmode"], ctypes.c_int32), _p(g["bmv"], ctypes.c_int32),
+        _p(g["split_part"], ctypes.c_int32), _p(g["skip"], ctypes.c_int32))
+    enc.mode[:] = g["mode"]
+
+
+def count_modes_native(lib, enc):
+    """Dry mode-section counting pass in C++.  Returns (ymode_ct[5],
+    uv_ct[4], mvstats) with mvstats in the encoder's dict-of-lists
+    format."""
+    g = _mode_grids(enc)
+    ymode_ct = np.zeros(5, np.int64)
+    uv_ct = np.zeros(4, np.int64)
+    flat = np.zeros(2 * 32, np.int64)
+    lib.vp8e_count_modes(
+        enc.R, enc.C, _p(g["mode"], ctypes.c_int32),
+        _p(g["reff"], ctypes.c_int32), _p(g["mv"], ctypes.c_int32),
+        _p(g["bmode"], ctypes.c_int32), _p(g["bmv"], ctypes.c_int32),
+        _p(g["split_part"], ctypes.c_int32), _p(g["skip"], ctypes.c_int32),
+        _p(g["uvmode"], ctypes.c_int32),
+        _p(ymode_ct, ctypes.c_int64), _p(uv_ct, ctypes.c_int64),
+        _p(flat, ctypes.c_int64))
+    mvstats = []
+    for comp in range(2):
+        o = flat[comp * 32:(comp + 1) * 32]
+        mvstats.append({
+            "sign": [int(o[0]), int(o[1])],
+            "short_flag": [int(o[2]), int(o[3])],
+            "short": [int(x) for x in o[4:12]],
+            "bits": [[int(o[12 + 2 * k]), int(o[12 + 2 * k + 1])]
+                     for k in range(10)],
+        })
+    return ymode_ct, uv_ct, mvstats
+
+
+def pack_modes_native(lib, enc, first, keyframe):
+    """Real mode-section pack in C++, continuing BoolEncoder `first`'s
+    in-progress partition-0 stream.  Returns True on success (first's
+    state advanced), False to fall back to Python."""
+    g = _mode_grids(enc)
+    R, C = enc.R, enc.C
+    cap = len(first.buf) + (R + 1) * (C + 1) * 64 + 65536
+    buf = np.zeros(cap, np.uint8)
+    buf[:len(first.buf)] = np.frombuffer(bytes(first.buf), np.uint8)
+    state = np.array([first.lowvalue, first.range, first.count,
+                      len(first.buf)], np.int64)
+    seg_enabled = getattr(enc, "seg_map_enc", None) is not None
+    if seg_enabled:
+        segmap = np.ascontiguousarray(enc.seg_map_enc.astype(np.int32))
+        segp = np.asarray(enc.seg_tree_probs, np.uint8)
+    else:
+        segmap = np.zeros((R, C), np.int32)
+        segp = np.zeros(3, np.uint8)
+    ymp = np.asarray(enc.ymode_prob, np.uint8)
+    uvp = np.asarray(enc.uv_mode_prob, np.uint8)
+    mvc = np.ascontiguousarray(enc.mvc.astype(np.uint8))
+    rc = lib.vp8e_pack_modes(
+        R, C, int(keyframe), _p(g["mode"], ctypes.c_int32),
+        _p(g["reff"], ctypes.c_int32), _p(g["mv"], ctypes.c_int32),
+        _p(g["bmode"], ctypes.c_int32), _p(g["bmv"], ctypes.c_int32),
+        _p(g["split_part"], ctypes.c_int32), _p(g["skip"], ctypes.c_int32),
+        _p(g["uvmode"], ctypes.c_int32), _p(segmap, ctypes.c_int32),
+        int(seg_enabled), _p(segp, ctypes.c_uint8),
+        int(enc.mb_no_coeff_skip), int(getattr(enc, "prob_skip_false", 0)),
+        int(getattr(enc, "prob_intra", 0)),
+        int(getattr(enc, "prob_last", 0)), int(getattr(enc, "prob_gf", 0)),
+        _p(ymp, ctypes.c_uint8), _p(uvp, ctypes.c_uint8),
+        _p(mvc, ctypes.c_uint8), _p(buf, ctypes.c_uint8), cap,
+        _p(state, ctypes.c_int64))
+    if rc < 0:
+        return False
+    first.lowvalue = int(state[0])
+    first.range = int(state[1])
+    first.count = int(state[2])
+    first.buf = bytearray(buf[:int(state[3])].tobytes())
+    return True

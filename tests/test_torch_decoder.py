@@ -111,6 +111,12 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import libvpx_opencl_tpu_torch\n"
             "import libvpx_opencl_tpu_torch.models.torch_decoder\n"
+            "import libvpx_opencl_tpu_torch.models.torch_encoder\n"
+            "import libvpx_opencl_tpu_torch.models.encoder\n"
+            "import libvpx_opencl_tpu_torch.models.wavefront\n"
+            "import libvpx_opencl_tpu_torch.ops.me\n"
+            "import libvpx_opencl_tpu_torch.ops.me_sad\n"
+            "import libvpx_opencl_tpu_torch.ops.rd_device\n"
             "import libvpx_opencl_tpu_torch.ops.wavefront\n"
             "import libvpx_opencl_tpu_torch.ops._cuda\n"
             "import libvpx_opencl_tpu_torch.utils.native\n"

@@ -96,10 +96,12 @@ def main():
         prof_wall = decode()
     dev = collections.Counter()
     calls = collections.Counter()
+    # kernel events only: an operator's row repeats its kernels' time
+    from torch.autograd import DeviceType
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0))
-        if t > 0:
+        if t > 0 and ev.device_type == DeviceType.CUDA:
             dev[ev.key] += t / 1e3          # us -> ms
             calls[ev.key] += ev.count
     busy = sum(dev.values())

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's 1080p encode (PyTorch/CUDA).
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 tools/profile_torch_encode.py [--frames 4]
+
+Decodes the first frames of tests/vectors/bench_1080p.ivf with the port's
+decoder, then encodes them (1 key + the rest inter) with TorchEncoder
+under SLICE2_SF at qindex 24, once to warm up and once with timers. Every
+timed stage is bracketed by torch.cuda.synchronize(), so stage times are
+wall-clock seconds of host + device work and add up to the frame:
+  * decision (the _decide_*_fn hooks: motion search + RD choice), and
+    inside it K3 (ops/me_sad.sad_grid, per launch);
+  * encode (the _encode_fn hook), split into the encode wavefront
+    (models/wavefront.encode_recon_planes) and the rest, which is MC;
+  * loop filter + borders (the _lf_fn hook: K2);
+  * host pack (Encoder._pack);
+  * other: uploads, host grids, MV->mode mapping.
+Each frame's row also holds its number of intra MBs and of dependency
+levels the encode wavefront walked. Then a third encoder encodes the same
+frames again, the last one under torch.profiler, for the device's busy
+time and idle share on an inter frame. Prints the card (nvidia-smi name, power limit) and
+one JSON line. It imports nothing of JAX or of the JAX package.
+"""
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_encode: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    from libvpx_opencl_tpu_torch.models import wavefront as EW
+    from libvpx_opencl_tpu_torch.ops import me_sad
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=4)
+    args = ap.parse_args()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    stream = os.path.join(HERE, "tests", "vectors", "bench_1080p.ivf")
+    frames = [tuple(np.array(p) for p in planes) for planes in
+              TD.decode_ivf_torch(stream, limit=args.frames, device="cuda")]
+
+    stage = collections.Counter()       # seconds per stage, current frame
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                stage[key] += time.perf_counter() - t0
+        return wrapper
+
+    class TimedEncoder(TE.TorchEncoder):
+        _decide_key_fn = staticmethod(timed(TE._decide_rd_key, "decision"))
+        _decide_inter_fn = staticmethod(timed(TE._decide_rd_inter,
+                                              "decision"))
+        _encode_fn = staticmethod(timed(TE._encode_device, "encode"))
+        _lf_fn = staticmethod(timed(TE._lf_device, "loop_filter"))
+        _pack = timed(TE.TorchEncoder._pack, "host_pack")
+
+    def encode_all(cls, frames, per_frame=None):
+        enc = cls(1920, 1080, qindex=24, device="cuda")
+        enc.sf = TE.SLICE2_SF
+        for frame in frames:
+            stage.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = enc.encode_frame(*frame)
+            torch.cuda.synchronize()
+            if per_frame is not None:
+                row = dict(stage, total=time.perf_counter() - t0,
+                           bytes=len(payload), **shape.pop())
+                row["mc"] = row["encode"] - row["encode_wavefront"]
+                row["other"] = row["total"] - sum(
+                    row[k] for k in ("decision", "encode", "loop_filter",
+                                     "host_pack"))
+                per_frame.append(row)
+        return enc
+
+    encode_all(TE.TorchEncoder, frames)              # warm-up
+    ew_fn, k3_fn = EW.encode_recon_planes, me_sad.sad_grid
+    ew_timed = timed(ew_fn, "encode_wavefront")
+    shape = []
+
+    def ew_probe(R, C, *a):
+        intra = a[8].cpu().numpy()       # after 3 sources, 3 predictions,
+        shape.append({                   # mode and uv_mode
+            "intra_mbs": int(intra.sum()),
+            "levels": int(EW.intra_levels(R, C, intra).max()) + 1})
+        return ew_timed(R, C, *a)
+
+    EW.encode_recon_planes = ew_probe
+    me_sad.sad_grid = timed(k3_fn, "k3_sad_grid")
+    rows = []
+    try:
+        encode_all(TimedEncoder, frames, rows)
+    finally:
+        EW.encode_recon_planes, me_sad.sad_grid = ew_fn, k3_fn
+
+    from torch.profiler import ProfilerActivity, profile
+    enc = encode_all(TE.TorchEncoder, frames[:-1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enc.encode_frame(*frames[-1])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev = collections.Counter()
+    calls = collections.Counter()
+    # kernel events only: an operator's row repeats its kernels' time
+    from torch.autograd import DeviceType
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if t > 0 and ev.device_type == DeviceType.CUDA:
+            dev[ev.key] += t / 1e3          # us -> ms
+            calls[ev.key] += ev.count
+    busy = sum(dev.values())
+    out = {
+        "card": card, "frames": len(frames),
+        "keyframe_s": rows[0],
+        "inter_frames_s": rows[1:],
+        "inter_fps": (len(rows) - 1) / sum(r["total"] for r in rows[1:]),
+        "profiled_inter_frame": {
+            "wall_s": prof_wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
+            "kernel_launches": sum(calls.values()),
+            "device_ms_top": {
+                k[:90]: {"ms": v, "calls": calls[k]}
+                for k, v in dev.most_common(10)}},
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
