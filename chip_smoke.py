@@ -16,18 +16,23 @@ raises (exit code != 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
   * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
-    versions on random cases at R x C = (4,6), (3,3), (1,5), (5,1),
+    versions on random cases at R x C = (4,6), (3,3), (1,5), (5,1), (1,1),
+    (2,1), (1,2), (2,2), (200,3) (more MB rows than the card has SMs) and
     (68,120): exact equality (tolerance 0: integer math);
-  * the 1080p decode: MD5 of every frame, K1/K2 launches per frame;
+  * the 1080p decode: MD5 of every frame; K1 launched once per frame, K2
+    once per frame with a filter level;
   * the six extra streams' MD5 results;
   * decode fps (median of 3 timed runs after one warm-up) and each
-    kernel's per-frame time from CUDA events, beside the card's name and
-    power limit;
+    kernel's per-frame time from CUDA events (its launch alone on every
+    decoded frame's inputs, and around the wrapper inside the decoder)
+    with its launches per frame, its chain of 2(R-1)+C dependent MB steps
+    and the microseconds per step, beside the card's name and power limit;
   * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1)
     and at 68x120 on a decoded 1080p frame: exact equality; ties on a
     constant plane resolved on the card as on the CPU;
   * a QCIF clip encoded on the card and on the CPU: payload bytes equal;
-  * the 1080p encode: bytes, luma PSNR, K3/K2 launches per frame, the
+  * the 1080p encode: bytes, luma PSNR, K3/K2 launches per frame (K2
+    once), the
     payload decoded by TorchDecoder on the card equal to the encoder's
     reconstruction; full_search through K3 equal to full_search through
     the plain version on an inter frame's tensors;
@@ -46,7 +51,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VECTORS = os.path.join(HERE, "tests", "vectors")
-GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (68, 120)]
+GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (1, 1), (2, 1), (1, 2), (2, 2),
+         (200, 3), (68, 120)]
 EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
                  "odd_65x49", "part4_cif", "seg_roi_qcif"]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
@@ -154,26 +160,34 @@ def main():
     golden = load_golden_md5s(bench + ".md5")
     for name in W.launches:
         W.launches[name] = 0
-    per_frame = []
+    per_frame = []                # (K1, K2 launches, filter level)
     src_frames = []               # decoded frames 0-3: the encoder's input
     n = 0
-    for i, planes in enumerate(TD.decode_ivf_torch(bench, device="cuda")):
-        if i < 4:
+    dec = TD.TorchDecoder(device="cuda")
+    for payload, _pts in read_ivf(bench).frames:
+        before = dict(W.launches)
+        show, planes = dec.decode_frame(payload)
+        per_frame.append((
+            W.launches["intra_wavefront"] - before["intra_wavefront"],
+            W.launches["lf_wavefront"] - before["lf_wavefront"],
+            dec.filter_level))
+        if not show:
+            continue
+        if n < 4:
             src_frames.append(tuple(np.array(p) for p in planes))
-        # the generator yields once the frame's dispatch has finished
-        per_frame.append(tuple(W.launches[k] - sum(p[j] for p in per_frame)
-                               for j, k in enumerate(("intra_wavefront",
-                                                      "lf_wavefront"))))
-        if frame_md5(*planes) != golden[i]:
-            fail(f"bench_1080p frame {i}: MD5 mismatch")
+        if n >= len(golden) or frame_md5(*planes) != golden[n]:
+            fail(f"bench_1080p frame {n}: MD5 mismatch")
         n += 1
     launches = dict(W.launches)
     if n != len(golden):
         fail(f"bench_1080p: {n} frames decoded, {len(golden)} expected")
     print(f"bench_1080p: {n}/{len(golden)} frames MD5-exact", flush=True)
-    print(f"launches per frame (K1, K2): {per_frame}", flush=True)
-    if any(k1 <= 0 or k2 <= 0 for k1, k2 in per_frame):
-        fail("a frame of the main path did not launch both kernels")
+    print(f"launches per frame (K1, K2, filter level): {per_frame}",
+          flush=True)
+    for i, (k1, k2, level) in enumerate(per_frame):
+        if k1 != 1 or k2 != (1 if level else 0):
+            fail(f"bench_1080p frame {i} (filter level {level}) launched K1 "
+                 f"{k1} and K2 {k2} times; one launch each is the design")
 
     for name in EXTRA_STREAMS:
         path = os.path.join(VECTORS, f"{name}.ivf")
@@ -206,48 +220,85 @@ def main():
 
     # -- per-kernel time on the main path's inputs -----------------------
     # Wrap the plane-level entries the decoder calls: time every launch
-    # with CUDA events, keep the inputs of a few frames, and run the plain
-    # versions on the same inputs afterwards.
+    # with CUDA events inside the decoder, keep every frame's inputs (and a
+    # few frames' outputs), then time each frame's launch alone and run the
+    # plain versions on the same inputs.
     k1_fn, k2_fn = W.intra_recon_planes, W.loop_filter_planes
     sample = {0, 1, len(frames) // 2}
     rec = {"k1": [], "k2": []}
+    every = {"k1": [], "k2": []}
     kept = {"k1": [], "k2": []}
     stats = {"k1": [], "k2": []}
 
     def probe_k1(R, C, y, u, v, ry, ru, rv, params):
         f = len(rec["k1"])
-        inp = [t.clone() for t in (y, u, v)] if f in sample else None
+        inp = (R, C, [t.clone() for t in (y, u, v)],
+               [t.clone() for t in (ry, ru, rv)], params.clone())
         e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
         e0.record()
         k1_fn(R, C, y, u, v, ry, ru, rv, params)
         e1.record()
         rec["k1"].append((e0, e1))
+        every["k1"].append(inp)
         stats["k1"].append((params[:, 2].clone(), params[:, 0].clone()))
-        if inp is not None:
-            kept["k1"].append((R, C, inp, [t.clone() for t in (ry, ru, rv)],
-                               params.clone(),
-                               [t.clone() for t in (y, u, v)]))
+        if f in sample:
+            kept["k1"].append((*inp, [t.clone() for t in (y, u, v)]))
 
     def probe_k2(R, C, simple, y, u, v, params):
         f = len(rec["k2"])
-        inp = [t.clone() for t in (y, u, v)] if f in sample else None
+        inp = (R, C, simple, [t.clone() for t in (y, u, v)], params.clone())
         e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
         e0.record()
         k2_fn(R, C, simple, y, u, v, params)
         e1.record()
         rec["k2"].append((e0, e1))
+        every["k2"].append(inp)
         stats["k2"].append(params[:, 0].clone())
-        if inp is not None:
-            kept["k2"].append((R, C, simple, inp, params.clone(),
-                               [t.clone() for t in (y, u, v)]))
+        if f in sample:
+            kept["k2"].append((*inp, [t.clone() for t in (y, u, v)]))
 
     W.intra_recon_planes, W.loop_filter_planes = probe_k1, probe_k2
     try:
         decode_all()
     finally:
         W.intra_recon_planes, W.loop_filter_planes = k1_fn, k2_fn
-    k_ms = {k: statistics.mean(a.elapsed_time(b) for a, b in v)
-            for k, v in rec.items()}
+    in_decoder_ms = {k: statistics.mean(a.elapsed_time(b) for a, b in v)
+                     for k, v in rec.items()}
+
+    def time_alone(call, cases, rows=None):
+        """Mean over frames of the median of 3 event-timed wrapper calls,
+        each on fresh copies of the frame's planes; `rows`: only the first
+        MB rows of each frame."""
+        per = []
+        for case in cases:
+            ts = []
+            R, C = rows or case[0], case[1]
+            for _ in range(3):
+                planes = [t[:shape[0]].clone() for t, shape in zip(
+                    case[-3 if call is k1_fn else -2], W.plane_shapes(R, C))]
+                torch.cuda.synchronize()
+                e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+                e0.record()
+                if call is k1_fn:
+                    call(R, C, *planes, *(t[:R * C] for t in case[3]),
+                         case[4][:R * C])
+                else:
+                    call(R, C, case[2], *planes, case[4][:R * C])
+                e1.record()
+                torch.cuda.synchronize()
+                ts.append(e0.elapsed_time(e1))
+            per.append(statistics.median(ts))
+        return statistics.mean(per)
+
+    with torch.inference_mode():
+        k_ms = {"k1": time_alone(k1_fn, every["k1"]),
+                "k2": time_alone(k2_fn, every["k2"])}
+        # the keyframe (every MB intra and filtered), whole and its first
+        # MB row alone: full = (C + 2(R-1)) * step + (R-1) * hand-off
+        key_ms = {k: (time_alone(fn, every[k][:1]),
+                      time_alone(fn, every[k][:1], rows=1))
+                  for k, fn in (("k1", k1_fn), ("k2", k2_fn))}
+    del every
 
     def time_plain(fn):
         torch.cuda.synchronize()
@@ -303,10 +354,21 @@ def main():
         o = statistics.mean(x[1] for x in bs)
         return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
-    print(f"K1 intra_wavefront: {k_ms['k1']:.4f} ms/frame "
-          f"({W.diag_launches(R, C)} launches) [{card}]", flush=True)
-    print(f"K2 lf_wavefront: {k_ms['k2']:.4f} ms/frame "
-          f"({W.diag_launches(R, C)} launches) [{card}]", flush=True)
+    steps = W.diag_depth(R, C)
+    for key, name in (("k1", "K1 intra_wavefront"), ("k2", "K2 lf_wavefront")):
+        per = len(rec[key]) / len(frames)
+        print(f"{name}: {k_ms[key]:.4f} ms/frame alone on each decoded "
+              f"frame's inputs ({in_decoder_ms[key]:.4f} ms/frame by events "
+              f"around the wrapper inside the decoder), {per:g} "
+              f"launches/frame, chain of {steps} dependent MB steps, "
+              f"{k_ms[key] * 1e3 / steps:.3f} us/step [{card}]", flush=True)
+        full, row = key_ms[key]
+        step_us = row * 1e3 / C
+        hand_us = (full * 1e3 - steps * step_us) / (R - 1)
+        print(f"{name} on the keyframe: {full:.4f} ms, its first MB row "
+              f"alone {row:.4f} ms: {step_us:.3f} us per MB step, "
+              f"{hand_us:.3f} us per hand-off between rows [{card}]",
+              flush=True)
 
     # -- K3 vs plain ------------------------------------------------------
     def search_case(rng, R, C, plane=None, src=None):
@@ -407,7 +469,6 @@ def main():
         W.launches[name] = 0
     enc = new_encoder()
     dec = TD.TorchDecoder(device="cuda")
-    R, C = enc.R, enc.C
     enc_launches = {"sad_grid": 0, "lf_wavefront": 0}
     for i, frame in enumerate(src_frames):
         want_k3 = refs_searched(enc) if i else 0
@@ -425,10 +486,9 @@ def main():
         print(f"encode 1080p frame {i} ({'key' if i == 0 else 'inter'}): "
               f"{len(payload)} bytes, luma PSNR {p:.2f} dB, K3 launches "
               f"{k3}, K2 launches {k2}", flush=True)
-        if k3 != want_k3 or k2 != W.diag_launches(R, C):
+        if k3 != want_k3 or k2 != 1:
             fail(f"encode frame {i}: K3 launched {k3} times for {want_k3} "
-                 f"references, K2 {k2} times for {W.diag_launches(R, C)} "
-                 f"diagonals")
+                 f"references, K2 {k2} times for one loop filter")
         if not show or any(not np.array_equal(a, b)
                            for a, b in zip(planes, recon)):
             fail(f"encode frame {i}: the decoded payload differs from the "

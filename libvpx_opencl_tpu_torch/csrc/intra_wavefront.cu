@@ -1,40 +1,67 @@
-// K1: VP8 intra reconstruction as an offset-2 diagonal wavefront (sm_90a).
+// K1: VP8 intra reconstruction as one persistent row-lagged kernel (sm_90a).
 //
 // Replaces the TPU kernel libvpx_opencl_tpu/ops/pallas_wavefront.py:
 // _intra_kernel (launched by intra_recon_pallas).
 //
-// What it computes. MB (r,c) lies on diagonal d = 2r+c. Its intra
-// prediction reads the row above (MB (r-1,c), diagonal d-2), the column to
-// the left (MB (r,c-1), d-1), the top-left pixel (MB (r-1,c-1), d-3) and,
-// for B_PRED, four above-right pixels (MB (r-1,c+1), d-1). So every MB of
-// one diagonal can be reconstructed at once once the earlier diagonals are
-// done. The kernel works in place on the bordered raster uint8 planes:
-// the caller has already written every inter MB's reconstruction
-// (MC + residual, clipped) there, and each launch reconstructs the intra
-// MBs of one diagonal:
+// What it computes. The kernel works in place on the bordered raster uint8
+// planes: the caller has already written every inter MB's reconstruction
+// (MC + residual, clipped) there, and the kernel reconstructs the intra MBs:
 //   * 16x16 luma and 8x8 chroma DC/V/H/TM prediction (reconintra.c) plus
 //     residual, clipped to [0,255];
-//   * B_PRED: sixteen 4x4 sub-blocks in raster order over ten sub-modes
-//     (reconintra4x4.c), a __syncthreads between sub-blocks;
+//   * B_PRED: sixteen 4x4 sub-blocks over ten sub-modes (reconintra4x4.c),
+//     in 10 diagonal steps on one warp (a sub-block needs its left, above
+//     and above-right neighbours);
 //   * frame-edge rules: above = 127, left = 129, top-left 127 on MB row 0
 //     and 129 on MB column 0; above-right 127 on MB row 0 and the above
 //     row's pixel 15 in the last MB column; sub-block rows 1-3 of the right
 //     sub-block column reuse the row-0 above-right pixels.
 //
+// Dependencies. MB (r,c) reads the row above (MB (r-1,c)), the column to the
+// left ((r,c-1)), the top-left pixel ((r-1,c-1)) and, for B_PRED, four
+// above-right pixels ((r-1,c+1)). It writes its own pixels only. So (r,c)
+// may run once row r-1 has finished min(c+2, C) MBs and (r,c-1) is done:
+// the reference decoder's row-lag sync (threading.c, nsync-lagged rows)
+// with a lag of 2. Any order that keeps it gives the diagonal order's result
+// (tests/test_torch_rowlag.py checks this on the plain version; a lag of 1
+// does not).
+//
+// Design. One launch per call. Each block (256 worker threads and a
+// publisher warp that issues the releases) takes MB rows in start order
+// from a ticket counter (rowlag.cuh). It marks the row's intra MBs
+// in a shared bitmask and visits only those, left to right: inter MBs are
+// in place already, so a run of them is published at once with the intra
+// MB before it, and they cost no step. Invariant: before row r publishes
+// progress k, every pixel its MBs 0..k-1 wrote is in global memory. The
+// planes are written by other blocks during the kernel, so they are not
+// __restrict__ and never read through the read-only path. A block loads the
+// next intra MB's params and residuals into registers while it runs the
+// current one (nothing there depends on another row); the plane pixels an
+// MB reads (above row, above-right, top-left, and the left column) come in
+// one batch after the wait. B_PRED runs its 16 sub-blocks in 10 diagonal
+// steps on one warp, each pixel from a table over the 13 edge pixels, while
+// four other warps reconstruct the chroma.
+//
 // What bounds it on the card. A 1080p frame moves about 16 MB (int32
 // residual blocks in, uint8 planes in and out): ~5 us at 3.35 TB/s. The
-// real bound is the dependency chain: 2(R-1)+C = 254 diagonals at 1080p,
-// each at most 68 MBs wide, so the card is mostly idle and each diagonal
-// costs a launch. This first version launches once per diagonal from one
-// host call (intra_wavefront below), one 256-thread block per MB (one luma
-// pixel per thread, then chroma), and returns at once for inter MBs. A
-// persistent row-lagged kernel or a CUDA graph is the next step.
+// real bound is the chain of 2(R-1)+C = 254 dependent MB steps (plus R-1
+// hand-offs between rows) on a keyframe, each a global-memory round trip
+// and the prediction long; on inter frames only intra MBs are steps.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rowlag.cuh"
 
 namespace {
 
 constexpr int kBPred = 4;
+// blocks per launch: one per MB row, up to this many (more rows are
+// taken by the same blocks in turn)
+constexpr int kMaxBlocks = 1024;
+// MB columns a row may have: VP8's 14-bit frame width gives at most 1024
+constexpr int kMaxCols = 1024;
+// 256 workers (one luma pixel each) and the publisher warp (rowlag.cuh)
+constexpr int kWorkers = 256;
+constexpr int kThreads = kWorkers + 32;
 
 __device__ __forceinline__ int clamp255(int v) {
   return v < 0 ? 0 : (v > 255 ? 255 : v);
@@ -44,66 +71,42 @@ __device__ __forceinline__ int e3(int a, int b, int c) {
 }
 __device__ __forceinline__ int h2(int a, int b) { return (a + b + 1) >> 1; }
 
-// One pixel (i, j) of a 4x4 B_PRED sub-block (vp8_intra4x4_predict_c).
-// A[0..7] above (4 above + 4 above-right), L[0..3] left, tl top-left.
-__device__ int bpred_pixel(int mode, const int* A, const int* L, int tl,
-                           int i, int j) {
-  // pp = L3 L2 L1 L0 tl A0 A1 A2 A3 (for RD / VR / HD)
-  int pp[9] = {L[3], L[2], L[1], L[0], tl, A[0], A[1], A[2], A[3]};
-  auto ed = [&](int k) { return e3(pp[k], pp[k + 1], pp[k + 2]); };
-  auto hd = [&](int k) { return h2(pp[k], pp[k + 1]); };
-  switch (mode) {
-    case 0: {  // B_DC
-      return (A[0] + A[1] + A[2] + A[3] + L[0] + L[1] + L[2] + L[3] + 4) >> 3;
-    }
-    case 1:  // B_TM
-      return clamp255(L[i] + A[j] - tl);
-    case 2:  // B_VE
-      return e3(j == 0 ? tl : A[j - 1], A[j], A[j + 1]);
-    case 3: {  // B_HE
-      int a = i == 0 ? tl : L[i - 1];
-      int c = i == 3 ? L[3] : L[i + 1];
-      return e3(a, L[i], c);
-    }
-    case 4: {  // B_LD
-      int k = i + j;
-      return k < 6 ? e3(A[k], A[k + 1], A[k + 2]) : e3(A[6], A[7], A[7]);
-    }
-    case 5:  // B_RD
-      return ed(3 - i + j);
-    case 6: {  // B_VR
-      const int r0[4] = {hd(4), hd(5), hd(6), hd(7)};
-      const int r1[4] = {ed(3), ed(4), ed(5), ed(6)};
-      const int r2[4] = {ed(2), hd(4), hd(5), hd(6)};
-      const int r3[4] = {ed(1), ed(3), ed(4), ed(5)};
-      return i == 0 ? r0[j] : i == 1 ? r1[j] : i == 2 ? r2[j] : r3[j];
-    }
-    case 7: {  // B_VL
-      auto ev = [&](int k) { return e3(A[k], A[k + 1], A[k + 2]); };
-      auto hv = [&](int k) { return h2(A[k], A[k + 1]); };
-      const int r0[4] = {hv(0), hv(1), hv(2), hv(3)};
-      const int r1[4] = {ev(0), ev(1), ev(2), ev(3)};
-      const int r2[4] = {hv(1), hv(2), hv(3), ev(4)};
-      const int r3[4] = {ev(1), ev(2), ev(3), ev(5)};
-      return i == 0 ? r0[j] : i == 1 ? r1[j] : i == 2 ? r2[j] : r3[j];
-    }
-    case 8: {  // B_HD
-      const int r0[4] = {hd(3), ed(3), ed(4), ed(5)};
-      const int r1[4] = {hd(2), ed(2), hd(3), ed(3)};
-      const int r2[4] = {hd(1), ed(1), hd(2), ed(2)};
-      const int r3[4] = {hd(0), ed(0), hd(1), ed(1)};
-      return i == 0 ? r0[j] : i == 1 ? r1[j] : i == 2 ? r2[j] : r3[j];
-    }
-    default: {  // B_HU
-      const int* q = L;
-      const int r0[4] = {h2(q[0], q[1]), e3(q[0], q[1], q[2]), h2(q[1], q[2]),
-                         e3(q[1], q[2], q[3])};
-      const int r1[4] = {h2(q[1], q[2]), e3(q[1], q[2], q[3]), h2(q[2], q[3]),
-                         e3(q[2], q[3], q[3])};
-      const int r2[4] = {h2(q[2], q[3]), e3(q[2], q[3], q[3]), q[3], q[3]};
-      return i == 0 ? r0[j] : i == 1 ? r1[j] : i == 2 ? r2[j] : q[3];
-    }
-  }
+// B_PRED sub-modes B_VE..B_HU (2-9): pixel (i,j) of a 4x4 sub-block is
+// e3 (op 0) or h2 (op 1) of E[m], E[m+1] (, E[m+2]) over the edge vector
+// E = L3 L2 L1 L0 tl A0..A7 (reconintra4x4.c), indices clamped to [0,12];
+// the entry is op << 4 | (m + 1), row-major over (i,j).
+__constant__ unsigned char kBCode[8][16] = {
+    {5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7, 8},
+    {3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 0, 0, 0, 0},
+    {6, 7, 8, 9, 7, 8, 9, 10, 8, 9, 10, 11, 9, 10, 11, 12},
+    {4, 5, 6, 7, 3, 4, 5, 6, 2, 3, 4, 5, 1, 2, 3, 4},
+    {21, 22, 23, 24, 4, 5, 6, 7, 3, 21, 22, 23, 2, 4, 5, 6},
+    {22, 23, 24, 25, 6, 7, 8, 9, 23, 24, 25, 10, 7, 8, 9, 11},
+    {20, 4, 5, 6, 19, 3, 20, 4, 18, 2, 19, 3, 17, 1, 18, 2},
+    {19, 2, 18, 1, 18, 1, 17, 0, 17, 0, 16, 16, 16, 16, 16, 16}};
+
+// The B_PRED workspace: row 0 holds the top-left, above and above-right
+// pixels, column 0 the left ones, cell (1+y, 1+x) pixel (y, x) of the MB.
+typedef int Ws[17][21];
+
+// E[k] of sub-block (ir, ic), k clamped to [0, 12].
+__device__ __forceinline__ int edge_px(const Ws& ws, int ir, int ic, int k) {
+  k = k < 0 ? 0 : (k > 12 ? 12 : k);
+  return k < 4 ? ws[4 * ir + 4 - k][4 * ic] : ws[4 * ir][4 * ic + k - 4];
+}
+
+// One pixel (i, j) of sub-block (ir, ic) under sub-mode `mode`
+// (vp8_intra4x4_predict_c).
+__device__ __forceinline__ int bpred_pixel(int mode, const Ws& ws, int ir,
+                                           int ic, int i, int j) {
+  auto E = [&](int k) { return edge_px(ws, ir, ic, k); };
+  if (mode == 0)  // B_DC
+    return (E(0) + E(1) + E(2) + E(3) + E(5) + E(6) + E(7) + E(8) + 4) >> 3;
+  if (mode == 1)  // B_TM
+    return clamp255(E(3 - i) + E(5 + j) - E(4));
+  const int code = kBCode[mode - 2][4 * i + j];
+  const int m = (code & 15) - 1;
+  return (code >> 4) ? h2(E(m), E(m + 1)) : e3(E(m), E(m + 1), E(m + 2));
 }
 
 // 16x16 / 8x8 prediction (reconintra.c), mode clipped to DC/V/H/TM.
@@ -124,29 +127,48 @@ __device__ int pred_pixel(int mode, const int* above, const int* left,
   return (total + (1 << (shift - 1))) >> shift;
 }
 
-__global__ void intra_diag_kernel(uint8_t* __restrict__ y, int ys,
-                                  uint8_t* __restrict__ u,
-                                  uint8_t* __restrict__ v, int cs,
-                                  const int32_t* __restrict__ ry,
-                                  const int32_t* __restrict__ ru,
-                                  const int32_t* __restrict__ rv,
-                                  const int32_t* __restrict__ params,
-                                  int pstride, int C, int d, int r_lo) {
-  const int r = r_lo + blockIdx.x;
-  const int c = d - 2 * r;
-  const int n = r * C + c;
-  const int32_t* p = params + (int64_t)n * pstride;
-  if (p[2] == 0) return;  // inter MB: its reconstruction is in place
-  const int mode = p[0];
-  const int uv_mode = p[1];
-  const int t = threadIdx.x;
-  const bool up = r > 0, lf = c > 0;
+// What a block loads for one MB before it may run it; nothing here depends
+// on another row, so the block loads it for MB c+1 while it runs MB c.
+struct MbInputs {
+  int param;  // params column t (threads 0-19)
+  int res_y;  // luma residual pixel t
+  int res_c;  // chroma residual pixel (threads 128-255: U, then V)
+};
 
-  uint8_t* Y = y + (int64_t)(r * 16) * ys + c * 16;
+__device__ __forceinline__ MbInputs load_inputs(
+    const int32_t* __restrict__ ry, const int32_t* __restrict__ ru,
+    const int32_t* __restrict__ rv, const int32_t* __restrict__ params,
+    int pstride, int n) {
+  const int t = threadIdx.x;
+  MbInputs in;
+  in.param = t < 20 ? params[(int64_t)n * pstride + t] : 0;
+  in.res_y = ry[(int64_t)n * 256 + t];
+  in.res_c = t >= 128 ? (t < 192 ? ru : rv)[(int64_t)n * 64 + (t & 63)] : 0;
+  return in;
+}
+
+// One intra MB (r,c) of a row that this block owns; every thread calls it.
+__device__ __forceinline__ void intra_mb(uint8_t* y, int ys, uint8_t* u,
+                                         uint8_t* v, int cs,
+                                         const MbInputs& in, int C, int r,
+                                         int c, const int* sync, int& seen) {
+  const int t = threadIdx.x;
+  __shared__ int p[20];
   __shared__ int above[16], left[16], ar[4], tl;
   __shared__ int c_above[2][8], c_left[2][8], c_tl[2];
-  __shared__ int ws[17][21];
+  __shared__ Ws ws;
 
+  if (t < 20) p[t] = in.param;
+  rowlag::bar_sync(1, kWorkers);
+  const int mode = p[0];
+  const int uv_mode = p[1];
+  const bool up = r > 0, lf = c > 0;
+  uint8_t* Y = y + (int64_t)(r * 16) * ys + c * 16;
+
+  // the left column is this block's own earlier work; the rest is row
+  // r-1's, so all of it is loaded in one batch after the wait
+  if (up)
+    rowlag::wait_above(sync, r, c + 2 < C ? c + 2 : C, seen, kWorkers);
   if (t < 16) {
     above[t] = up ? Y[-ys + t] : 127;
   } else if (t < 32) {
@@ -166,44 +188,100 @@ __global__ void intra_diag_kernel(uint8_t* __restrict__ y, int ys,
     else
       c_tl[pl] = !up ? 127 : (!lf ? 129 : P[-cs - 1]);
   }
-  __syncthreads();
+  rowlag::bar_sync(1, kWorkers);
 
-  const int32_t* RY = ry + (int64_t)n * 256;
   if (mode != kBPred) {
     const int py = t >> 4, px = t & 15;
     const int pred = pred_pixel(mode, above, left, tl, up, lf, 16, 4, py, px);
-    Y[py * ys + px] = (uint8_t)clamp255(pred + RY[t]);
+    Y[py * ys + px] = (uint8_t)clamp255(pred + in.res_y);
   } else {
     if (t < 17) ws[0][t] = t == 0 ? tl : above[t - 1];
     if (t < 16) ws[1 + t][0] = left[t];
     if (t < 16) ws[(t >> 2) * 4][17 + (t & 3)] = ar[t & 3];
-    __syncthreads();
-    for (int k = 0; k < 16; ++k) {
-      const int ir = k >> 2, ic = k & 3;
-      if (t < 16) {
-        const int i = t >> 2, j = t & 3;
-        int A[8], L[4];
-        for (int q = 0; q < 8; ++q) A[q] = ws[4 * ir][1 + 4 * ic + q];
-        for (int q = 0; q < 4; ++q) L[q] = ws[1 + 4 * ir + q][4 * ic];
-        const int tl4 = ws[4 * ir][4 * ic];
-        int bm = p[4 + k];
-        bm = bm < 0 ? 0 : (bm > 9 ? 9 : bm);
-        const int pred = bpred_pixel(bm, A, L, tl4, i, j);
-        const int py = 4 * ir + i, px = 4 * ic + j;
-        ws[1 + py][1 + px] = clamp255(pred + RY[py * 16 + px]);
+    // each pixel's residual waits in its workspace cell
+    ws[1 + (t >> 4)][1 + (t & 15)] = in.res_y;
+    rowlag::bar_sync(1, kWorkers);
+    // warp 0: sub-block (ir, ic) needs (ir, ic-1), (ir-1, ic) and
+    // (ir-1, ic+1), so the sub-blocks of one diagonal 2*ir+ic run at once,
+    // 16 threads each; warps 4-7 do the chroma meanwhile
+    if (t < 32) {
+      for (int d = 0; d < 10; ++d) {
+        const int ir = (d < 3 ? 0 : (d - 2) >> 1) + (t >> 4);
+        if (ir <= 3 && 2 * ir <= d) {
+          const int ic = d - 2 * ir, i = (t >> 2) & 3, j = t & 3;
+          int bm = p[4 + 4 * ir + ic];
+          bm = bm < 0 ? 0 : (bm > 9 ? 9 : bm);
+          const int pred = bpred_pixel(bm, ws, ir, ic, i, j);
+          const int py = 4 * ir + i, px = 4 * ic + j;
+          ws[1 + py][1 + px] = clamp255(pred + ws[1 + py][1 + px]);
+        }
+        __syncwarp();
       }
-      __syncthreads();
+      for (int k = t; k < 256; k += 32)
+        Y[(k >> 4) * ys + (k & 15)] = (uint8_t)ws[1 + (k >> 4)][1 + (k & 15)];
     }
-    Y[(t >> 4) * ys + (t & 15)] = (uint8_t)ws[1 + (t >> 4)][1 + (t & 15)];
   }
 
-  if (t < 128) {
-    const int pl = t >> 6, k = t & 63, py = k >> 3, px = k & 7;
+  if (t >= 128) {
+    const int pl = (t - 128) >> 6, k = t & 63, py = k >> 3, px = k & 7;
     uint8_t* P = (pl == 0 ? u : v) + (int64_t)(r * 8) * cs + c * 8;
-    const int32_t* RC = (pl == 0 ? ru : rv) + (int64_t)n * 64;
     const int pred = pred_pixel(uv_mode, c_above[pl], c_left[pl], c_tl[pl],
                                 up, lf, 8, 3, py, px);
-    P[py * cs + px] = (uint8_t)clamp255(pred + RC[k]);
+    P[py * cs + px] = (uint8_t)clamp255(pred + in.res_c);
+  }
+}
+
+// The first intra MB of the row at or after column c (C if none), from the
+// row's bitmask in shared memory; the same value in every thread.
+__device__ __forceinline__ int next_intra(const unsigned* mask, int c,
+                                          int C) {
+  for (; c < C; c = (c | 31) + 1) {
+    const unsigned w = mask[c >> 5] >> (c & 31);
+    if (w) return c + __ffs(w) - 1;
+  }
+  return C;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    intra_rowlag_kernel(uint8_t* y, int ys, uint8_t* u, uint8_t* v, int cs,
+                        const int32_t* __restrict__ ry,
+                        const int32_t* __restrict__ ru,
+                        const int32_t* __restrict__ rv,
+                        const int32_t* __restrict__ params, int pstride,
+                        int R, int C, int* sync) {
+  __shared__ unsigned mask[kMaxCols / 32];
+  __shared__ int slot;  // progress handed to the publisher warp
+  const int t = threadIdx.x;
+  for (;;) {
+    const int r = rowlag::take_row(sync);
+    if (r >= R) return;
+    if (t >= kWorkers) {
+      rowlag::publisher(sync, r, &slot, C, kWorkers);
+      continue;
+    }
+    // which MBs of the row are intra; inter MBs are final already
+    for (int k = t; k < kMaxCols / 32; k += kWorkers) mask[k] = 0;
+    rowlag::bar_sync(1, kWorkers);
+    for (int c = t; c < C; c += kWorkers)
+      if (params[(int64_t)(r * C + c) * pstride + 2] != 0)
+        atomicOr(&mask[c >> 5], 1u << (c & 31));
+    rowlag::bar_sync(1, kWorkers);
+    int c = next_intra(mask, 0, C);
+    bool pending = false;
+    if (c > 0) rowlag::hand_over(&slot, c, pending, kWorkers);
+    int seen = 0;  // thread 0's last view of row r-1's progress
+    MbInputs next;
+    if (c < C) next = load_inputs(ry, ru, rv, params, pstride, r * C + c);
+    while (c < C) {
+      const MbInputs cur = next;
+      const int nc = next_intra(mask, c + 1, C);
+      if (nc < C) next = load_inputs(ry, ru, rv, params, pstride, r * C + nc);
+      intra_mb(y, ys, u, v, cs, cur, C, r, c, sync, seen);
+      // MB c is done, and the inter MBs up to nc
+      rowlag::hand_over(&slot, nc, pending, kWorkers);
+      c = nc;
+    }
+    rowlag::drain(pending, kWorkers);
   }
 }
 
@@ -211,27 +289,19 @@ __global__ void intra_diag_kernel(uint8_t* __restrict__ y, int ys,
 
 // y/u/v point at pixel (0,0) of the MB grid inside bordered planes (row
 // strides ys / cs bytes); residuals are [R*C,16,16] / [R*C,8,8] int32;
-// params is [R*C, >=20] int32 with row stride pstride. Launches one kernel
-// per non-empty diagonal (2(R-1)+C of them when C > 1) on `stream`.
+// params is [R*C, >=20] int32 with row stride pstride; sync is R+1 int32
+// zeros. One launch on `stream`; returns cudaGetLastError().
 extern "C" int intra_wavefront(void* y, int ys, void* u, void* v, int cs,
                                const void* ry, const void* ru, const void* rv,
                                const void* params, int pstride, int R, int C,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = 2 * (R - 1) + C;
-  for (int d = 0; d < D; ++d) {
-    int r_lo = (d - C + 2) / 2;
-    if (r_lo < 0) r_lo = 0;
-    int r_hi = d / 2;
-    if (r_hi > R - 1) r_hi = R - 1;
-    if (r_hi < r_lo) continue;  // empty diagonal (odd d when C == 1)
-    intra_diag_kernel<<<r_hi - r_lo + 1, 256, 0, s>>>(
-        static_cast<uint8_t*>(y), ys, static_cast<uint8_t*>(u),
-        static_cast<uint8_t*>(v), cs, static_cast<const int32_t*>(ry),
-        static_cast<const int32_t*>(ru), static_cast<const int32_t*>(rv),
-        static_cast<const int32_t*>(params), pstride, C, d, r_lo);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+                               void* sync, void* stream) {
+  const int grid = R < kMaxBlocks ? R : kMaxBlocks;
+  intra_rowlag_kernel<<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(y), ys, static_cast<uint8_t*>(u),
+      static_cast<uint8_t*>(v), cs, static_cast<const int32_t*>(ry),
+      static_cast<const int32_t*>(ru), static_cast<const int32_t*>(rv),
+      static_cast<const int32_t*>(params), pstride, R, C,
+      static_cast<int*>(sync));
   return static_cast<int>(cudaGetLastError());
 }

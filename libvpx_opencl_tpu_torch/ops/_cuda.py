@@ -31,9 +31,10 @@ _I = ctypes.c_int
 KERNELS = {
     "intra_wavefront": ("intra_wavefront.cu", "intra_wavefront",
                         [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I,
-                         _I, _VP]),
+                         _I, _VP, _VP]),
     "lf_wavefront": ("lf_wavefront.cu", "lf_wavefront",
-                     [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP]),
+                     [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP,
+                      _VP]),
     "sad_grid": ("sad_grid.cu", "sad_grid",
                  [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _VP]),
 }
@@ -65,10 +66,13 @@ def _so_path(name):
 
 
 def _stale(name):
+    """True if the library is missing or older than its source or any
+    header in csrc/."""
     so = _so_path(name)
-    src = os.path.join(CSRC, KERNELS[name][0])
+    deps = [os.path.join(CSRC, KERNELS[name][0])] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     return not os.path.exists(so) or os.path.getmtime(so) < \
-        os.path.getmtime(src)
+        max(os.path.getmtime(f) for f in deps)
 
 
 def _build(names):

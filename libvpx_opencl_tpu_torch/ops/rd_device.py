@@ -204,9 +204,19 @@ def rd_uv(resid_u, resid_v, dq_uv, qidx, tcb2):
 
 
 def rdc(rate, dist, rdmult, rddiv):
-    """RDCOST (rdopt.h): ((128 + rate*rdmult) >> 8) + rddiv*dist, in
-    float32 with the JAX file's operation order and no fused
-    multiply-add (decision only: the pack layer recomputes exact rates).
-    rdmult, rddiv: float32 scalars (0-dim tensors or Python numbers)."""
+    """RDCOST (rdopt.h): ((128 + rate*rdmult) >> 8) + rddiv*dist, as the
+    JAX encoder computes it under `jax.jit` (decision only: the pack layer
+    recomputes exact rates). rdmult, rddiv: float32 scalars (0-dim tensors
+    or Python numbers).
+
+    The floor term is float32, as in the JAX file. XLA fuses the final
+    `floor(..) + rddiv * dist` into one multiply-add, so the sum is taken
+    in float64 and rounded to float32 once. For the values the encoder
+    passes (integer floor terms below 2^24, rddiv <= 100, distortions that
+    are multiples of 1/4 below 2^32) the float64 product and sum are exact,
+    so this equals the fused result bit for bit at every qindex."""
     r = torch.as_tensor(rate).to(torch.float32)
-    return torch.floor((128.0 + r * rdmult) / 256.0) + rddiv * dist
+    fl = torch.floor((128.0 + r * rdmult) / 256.0)
+    d = torch.as_tensor(dist, device=fl.device).to(torch.float64)
+    return (fl.to(torch.float64)
+            + torch.as_tensor(rddiv).to(torch.float64) * d).to(torch.float32)

@@ -4,27 +4,31 @@ Ports libvpx_opencl_tpu/models/wavefront.py (intra_recon_blocks,
 loop_filter_blocks) and the two Pallas TPU kernels of
 libvpx_opencl_tpu/ops/pallas_wavefront.py (_intra_kernel, _lf_kernel).
 
-Both stages are offset-2 diagonal wavefronts: MB (r,c) lies on diagonal
-2r+c and depends only on MBs of earlier diagonals. Here they work in place
-on bordered raster uint8 planes (luma border BORDER, chroma BORDER/2), one
-diagonal at a time:
+Both stages work in place on bordered raster uint8 planes (luma border
+BORDER, chroma BORDER/2):
 
   * K1 (csrc/intra_wavefront.cu) reconstructs the intra MBs; the caller
     has already written every inter MB's reconstruction into the planes.
-  * K2 (csrc/lf_wavefront.cu) loop-filters the planes in place; since the
-    MBs of one diagonal touch disjoint pixels and every edit an MB must
-    see comes from an earlier diagonal, this equals raster-order
-    filtering, and the TPU kernel's deferred L/U edit strips and
-    lf_compose have no counterpart.
+  * K2 (csrc/lf_wavefront.cu) loop-filters the planes in place, with the
+    result of raster-order filtering; the TPU kernel's deferred L/U edit
+    strips and lf_compose have no counterpart.
+
+MB (r,c) of either stage depends only on MBs (r,c-1) and (r-1, c-1..c+1).
+The plain versions, which are the specification, walk offset-2 diagonals
+(MB (r,c) lies on diagonal 2r+c) through a per-MB-set step. The kernels
+run one persistent launch per call in which MB rows go to thread blocks in
+start order and MB (r,c) waits until row r-1 has finished min(c+2, C) MBs;
+tests/test_torch_rowlag.py shows with the plain step that every such
+order gives the diagonal result.
 
 The TPU kernels' diag-major lane layout exists for the TPU's 128-lane
 vector memory and is not carried over.
 
 Per kernel there are three entry points:
   * `*_planes`: the plane-level wrapper the decoder calls. For CUDA
-    tensors it launches the kernel (one launch per non-empty diagonal,
-    counted in `launches`) or raises; for CPU tensors it runs the plain
-    version. There is no fallback from one to the other.
+    tensors it launches the kernel (one launch per call, counted in
+    `launches`) or raises; for CPU tensors it runs the plain version.
+    There is no fallback from one to the other.
   * `intra_recon` / `loop_filter`: the JAX package's block layout
     ([N,16,16] / [N,8,8] int32 per MB), over the plane-level wrapper.
   * `intra_recon_plain` / `loop_filter_plain`: the same block layout over
@@ -43,6 +47,7 @@ BORDER = 32                # luma plane border; chroma uses BORDER // 2
 B_PRED_M = 4
 INTRA_COLS = 20            # mode, uv_mode, intra, unused, bmodes[16]
 LF_COLS = 8                # flevel, mblim, blim, lim, hev, noskip, unused x2
+MAX_COLS = 1024            # MB columns K1 takes: VP8 widths are 14 bits
 
 #: kernel launches per kernel (shared with every kernel wrapper)
 launches = _cuda.launches
@@ -50,12 +55,6 @@ launches = _cuda.launches
 
 def diag_depth(R, C):
     return 2 * (R - 1) + C
-
-
-def diag_launches(R, C):
-    """Kernel launches per wavefront pass: one per non-empty diagonal
-    (every diagonal when C > 1; only the even ones when C == 1)."""
-    return diag_depth(R, C) if C > 1 else R
 
 
 def _diag_mbs(R, C, d, device):
@@ -167,6 +166,22 @@ def _all_on_cpu(*ts):
     return all(t.device.type == "cpu" for t in ts)
 
 
+def _launch(name, R, planes, *args):
+    """One launch of kernel `name` on the current stream over bordered
+    planes (y, u, v), with an R+1 int32 zero scratch (row ticket and
+    per-row progress counters) allocated on that stream."""
+    y, u, v = planes
+    fn = _cuda.load()[name]
+    with torch.cuda.device(y.device):
+        sync = torch.zeros(R + 1, dtype=torch.int32, device=y.device)
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        b, b2 = BORDER, BORDER // 2
+        rc = fn(_origin(y, b), y.stride(0), _origin(u, b2), _origin(v, b2),
+                u.stride(0), *args, sync.data_ptr(), stream)
+    _cuda.check(rc, name)
+    launches[name] += 1
+
+
 # ---------------------------------------------------------------------------
 # K1: intra reconstruction
 
@@ -219,34 +234,38 @@ def _bpred_mbs(plane, C, r, c, y0, x0, above, left, tl, resid, bmodes):
     return ws[:, 1:17, 1:17]
 
 
+def _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c):
+    """Reconstruct the intra MBs among MBs (r, c) in place, given that
+    every MB they depend on is done (any device)."""
+    b, b2 = BORDER, BORDER // 2
+    n = r * C + c
+    sel = params[n, 2] != 0
+    if not bool(sel.any()):
+        return
+    r, c, n = r[sel], c[sel], n[sel]
+    mode, uv_mode = params[n, 0], params[n, 1]
+    up, lf = r > 0, c > 0
+    y0, x0, above, left, tl = _edges(y, b, 16, r, c)
+    rec = (P.pred_nxn(mode, above, left, tl, up, lf, 16)
+           + resid_y[n]).clamp(0, 255)
+    isb = mode == B_PRED_M
+    if bool(isb.any()):
+        rec[isb] = _bpred_mbs(y, C, r[isb], c[isb], y0[isb], x0[isb],
+                              above[isb], left[isb], tl[isb],
+                              resid_y[n[isb]], params[n[isb], 4:20])
+    _put_blocks(y, y0, x0, rec)
+    for plane, resid in ((u, resid_u), (v, resid_v)):
+        y0, x0, above, left, tl = _edges(plane, b2, 8, r, c)
+        rec = (P.pred_nxn(uv_mode, above, left, tl, up, lf, 8)
+               + resid[n]).clamp(0, 255)
+        _put_blocks(plane, y0, x0, rec)
+
+
 def _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params):
     """Plain PyTorch K1 over bordered planes, in place (any device)."""
-    b, b2 = BORDER, BORDER // 2
-    mode, uv_mode = params[:, 0], params[:, 1]
-    intra = params[:, 2] != 0
-    bmodes = params[:, 4:20]
     for d in range(diag_depth(R, C)):
         r, c = _diag_mbs(R, C, d, y.device)
-        n = r * C + c
-        sel = intra[n]
-        if not bool(sel.any()):
-            continue
-        r, c, n = r[sel], c[sel], n[sel]
-        up, lf = r > 0, c > 0
-        y0, x0, above, left, tl = _edges(y, b, 16, r, c)
-        rec = (P.pred_nxn(mode[n], above, left, tl, up, lf, 16)
-               + resid_y[n]).clamp(0, 255)
-        isb = mode[n] == B_PRED_M
-        if bool(isb.any()):
-            rec[isb] = _bpred_mbs(y, C, r[isb], c[isb], y0[isb], x0[isb],
-                                  above[isb], left[isb], tl[isb],
-                                  resid_y[n[isb]], bmodes[n[isb]])
-        _put_blocks(y, y0, x0, rec)
-        for plane, resid in ((u, resid_u), (v, resid_v)):
-            y0, x0, above, left, tl = _edges(plane, b2, 8, r, c)
-            rec = (P.pred_nxn(uv_mode[n], above, left, tl, up, lf, 8)
-                   + resid[n]).clamp(0, 255)
-            _put_blocks(plane, y0, x0, rec)
+        _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c)
 
 
 def intra_recon_planes(R, C, y, u, v, resid_y, resid_u, resid_v, params):
@@ -254,28 +273,22 @@ def intra_recon_planes(R, C, y, u, v, resid_y, resid_u, resid_v, params):
     reconstruction. resid_* [N,16,16] / [N,8,8] int32; params
     [N, >=INTRA_COLS] int32 (pack_intra_params; rows may be strided).
 
-    CUDA tensors: launches csrc/intra_wavefront.cu, one launch per
-    non-empty diagonal, and adds them to launches["intra_wavefront"].
-    CPU tensors: the plain version."""
+    CUDA tensors: one launch of csrc/intra_wavefront.cu, counted in
+    launches["intra_wavefront"]. CPU tensors: the plain version."""
     if _all_on_cpu(y, u, v, resid_y, resid_u, resid_v, params):
         _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params)
         return
     N = R * C
+    if C > MAX_COLS:
+        raise ValueError(f"K1 takes at most {MAX_COLS} MB columns, got {C}")
     _check_cuda(R, C, (y, u, v), {
         "resid_y": (resid_y, (N, 16, 16), True),
         "resid_u": (resid_u, (N, 8, 8), True),
         "resid_v": (resid_v, (N, 8, 8), True),
         "params": (params, (N, INTRA_COLS), False)})
-    fn = _cuda.load()["intra_wavefront"]
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        b, b2 = BORDER, BORDER // 2
-        rc = fn(_origin(y, b), y.stride(0), _origin(u, b2), _origin(v, b2),
-                u.stride(0), resid_y.data_ptr(), resid_u.data_ptr(),
-                resid_v.data_ptr(), params.data_ptr(), params.stride(0),
-                R, C, stream)
-    _cuda.check(rc, "intra_wavefront")
-    launches["intra_wavefront"] += diag_launches(R, C)
+    _launch("intra_wavefront", R, (y, u, v), resid_y.data_ptr(),
+            resid_u.data_ptr(), resid_v.data_ptr(), params.data_ptr(),
+            params.stride(0), R, C)
 
 
 def _intra_blocks(planes_fn, R, C, inter_y, inter_u, inter_v,
@@ -351,46 +364,43 @@ def _filter_mbs(planes, border, n, r, c, simple, mblim, blim, lim, hev,
         pl[rows, cols] = part
 
 
+def _lf_step(C, simple, y, u, v, params, r, c):
+    """Loop-filter MBs (r, c) in place, given that every MB they depend on
+    is done and no two of them touch the same pixels (any device)."""
+    b, b2 = BORDER, BORDER // 2
+    n = r * C + c
+    act = params[n, 0] > 0
+    if not bool(act.any()):
+        return
+    r, c, n = r[act], c[act], n[act]
+    mblim, blim, lim, hev = (params[n, k][:, None] for k in range(1, 5))
+    noskip = (params[n, 5] != 0)[:, None]
+    _filter_mbs((y,), b, 16, r, c, simple, mblim, blim, lim, hev, noskip)
+    if not simple:
+        _filter_mbs((u, v), b2, 8, r, c, False, mblim, blim, lim, hev,
+                    noskip)
+
+
 def _lf_planes_plain(R, C, simple, y, u, v, params):
     """Plain PyTorch K2 over bordered planes, in place (any device)."""
-    b, b2 = BORDER, BORDER // 2
     for d in range(diag_depth(R, C)):
         r, c = _diag_mbs(R, C, d, y.device)
-        n = r * C + c
-        act = params[n, 0] > 0
-        if not bool(act.any()):
-            continue
-        r, c, n = r[act], c[act], n[act]
-        mblim, blim, lim, hev = (params[n, k][:, None] for k in range(1, 5))
-        noskip = (params[n, 5] != 0)[:, None]
-        _filter_mbs((y,), b, 16, r, c, simple, mblim, blim, lim, hev,
-                    noskip)
-        if not simple:
-            _filter_mbs((u, v), b2, 8, r, c, False, mblim, blim, lim, hev,
-                        noskip)
+        _lf_step(C, simple, y, u, v, params, r, c)
 
 
 def loop_filter_planes(R, C, simple, y, u, v, params):
     """K2 in place on bordered uint8 planes. params [N, >=6] int32
     (pack_lf_params; rows may be strided).
 
-    CUDA tensors: launches csrc/lf_wavefront.cu, one launch per non-empty
-    diagonal, and adds them to launches["lf_wavefront"].
-    CPU tensors: the plain version."""
+    CUDA tensors: one launch of csrc/lf_wavefront.cu, counted in
+    launches["lf_wavefront"]. CPU tensors: the plain version."""
     if _all_on_cpu(y, u, v, params):
         _lf_planes_plain(R, C, simple, y, u, v, params)
         return
     _check_cuda(R, C, (y, u, v),
                 {"params": (params, (R * C, 6), False)})
-    fn = _cuda.load()["lf_wavefront"]
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        b, b2 = BORDER, BORDER // 2
-        rc = fn(_origin(y, b), y.stride(0), _origin(u, b2), _origin(v, b2),
-                u.stride(0), params.data_ptr(), params.stride(0), R, C,
-                int(bool(simple)), stream)
-    _cuda.check(rc, "lf_wavefront")
-    launches["lf_wavefront"] += diag_launches(R, C)
+    _launch("lf_wavefront", R, (y, u, v), params.data_ptr(),
+            params.stride(0), R, C, int(bool(simple)))
 
 
 def _lf_blocks(planes_fn, R, C, simple, y, u, v, flevel, mblim, blim, lim,

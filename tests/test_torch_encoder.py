@@ -246,3 +246,38 @@ def test_uv_inter_rd_matches_jax():
         TRD.banded_token_costs(tc, 2))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("qindex", [4, 24])
+def test_uv_intra_rd_matches_jax(qindex):
+    """The chroma intra-mode decision against the jitted JAX function, as
+    the JAX encoder runs it: at qindex 4 rddiv is 100 and the RD costs of
+    random blocks pass 2^24, where rdc's rounding decides near-ties."""
+    import jax
+    import jax.numpy as jnp
+    from libvpx_opencl_tpu.models import rdopt
+    from libvpx_opencl_tpu.models import tpu_encoder as JE
+    from libvpx_opencl_tpu.models.encoder import _default_token_costs
+    from libvpx_opencl_tpu.ops import rd_device as JRD
+    from libvpx_opencl_tpu_torch.ops import rd_device as TRD
+    rng = np.random.default_rng(qindex)
+    R, C = 4, 6
+    N = R * C
+    pl = rng.integers(0, 256, (2, R * 8 + 32, C * 8 + 32)).astype(np.uint8)
+    ub, vb = rng.integers(0, 256, (2, N, 8, 8)).astype(np.int32)
+    dqu = rng.integers(4, 158, (N, 2)).astype(np.int32)
+    qidx = np.full(N, qindex, np.int32)
+    cost = rng.integers(0, 600, 4).astype(np.int32)
+    rdm, rdd, _ = rdopt.rd_consts(qindex)
+    tc = _default_token_costs()
+    want = jax.jit(JE._uv_intra_rd, static_argnums=(0, 1))(
+        R, C, *(jnp.asarray(a) for a in (pl[0], pl[1], ub, vb, dqu, qidx)),
+        JRD.banded_token_costs(tc, 2), jnp.asarray(cost), jnp.float32(rdm),
+        jnp.float32(rdd))
+    got = TE._uv_intra_rd(
+        R, C, *(torch.from_numpy(a) for a in (pl[0], pl[1], ub, vb, dqu,
+                                              qidx)),
+        TRD.banded_token_costs(tc, 2), torch.from_numpy(cost),
+        torch.tensor(float(rdm)), torch.tensor(float(rdd)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -98,11 +98,13 @@ def test_plane_wrappers_count_no_cpu_launches():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device):
-    """K1 and K2 on the card equal their plain versions (runs where a CUDA
-    card and nvcc exist; chip_smoke.py covers the full geometries)."""
-    R, C = 4, 6
+@pytest.mark.parametrize("R,C", [(4, 6), (1, 1), (5, 1)])
+def test_kernels_match_plain_on_card(cuda_device, R, C):
+    """K1 and K2 on the card equal their plain versions, one launch each
+    per call (runs where a CUDA card and nvcc exist; chip_smoke.py covers
+    the full geometries)."""
     dev = cuda_device
+    before = dict(W.launches)
     case = _intra_case(np.random.default_rng(3), R, C)
     args = [_t(a).to(dev) for a in case]
     for g, w in zip(W.intra_recon(R, C, *args),
@@ -113,3 +115,5 @@ def test_kernels_match_plain_on_card(cuda_device):
         for g, w in zip(W.loop_filter(R, C, simple, *lcase),
                         W.loop_filter_plain(R, C, simple, *lcase)):
             assert torch.equal(g, w)
+    assert W.launches["intra_wavefront"] == before["intra_wavefront"] + 1
+    assert W.launches["lf_wavefront"] == before["lf_wavefront"] + 2
