@@ -27,9 +27,11 @@ raises (exit code != 0). It prints, in order:
     decoded frame's inputs, and around the wrapper inside the decoder)
     with its launches per frame, its chain of 2(R-1)+C dependent MB steps
     and the microseconds per step, beside the card's name and power limit;
-  * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1)
-    and at 68x120 on a decoded 1080p frame: exact equality; ties on a
-    constant plane resolved on the card as on the CPU;
+  * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1),
+    at rng 7 and 1, on windows at every column mod 4, on plane 0 with
+    source 255 (every SAD 65280) and at 68x120 on a decoded 1080p frame:
+    exact equality; ties on a constant plane resolved on the card as on
+    the CPU;
   * a QCIF clip encoded on the card and on the CPU: payload bytes equal;
   * the 1080p encode: bytes, luma PSNR, K3/K2 launches per frame (K2
     once), the
@@ -37,7 +39,9 @@ raises (exit code != 0). It prints, in order:
     reconstruction; full_search through K3 equal to full_search through
     the plain version on an inter frame's tensors;
   * encode frames/s over the inter frames, the keyframe's seconds, the
-    encode wavefront's seconds on the keyframe, K3's time per launch;
+    encode wavefront's seconds on the keyframe, K3's time per launch and
+    that of torch.cdist(p=1) on the same candidates (its yardstick, held
+    equal to K3);
   * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -392,22 +396,45 @@ def main():
         return np.pad(vis, ((32, 32 + R * 16 - vis.shape[0]),
                             (32, 32 + C * 16 - vis.shape[1])), mode="edge")
 
-    def k3_vs_plain(label, plane, src, cen, pos):
-        wy = pos[:, 0] + cen[:, 0] - ME.RNG
-        wx = pos[:, 1] + cen[:, 1] - ME.RNG
+    def k3_windows(label, plane, wy, wx, src, rng=ME.RNG):
+        """K3 vs sad_grid_plain on explicit windows; returns K3's grid."""
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (plane, wy, wx, src)]
-        got = me_sad.sad_grid(*args)
+        got = me_sad.sad_grid(*args, rng)
         torch.cuda.synchronize()
-        d = int((got - me_sad.sad_grid_plain(*args)).abs().max())
+        d = int((got - me_sad.sad_grid_plain(*args, rng)).abs().max())
         print(f"K3 vs plain {label}: max_abs_diff {d}", flush=True)
         err["sad_grid"] = max(err["sad_grid"], d)
         if d:
             fail(f"K3 disagrees with sad_grid_plain at {label}")
+        return got
+
+    def k3_vs_plain(label, plane, src, cen, pos, rng=ME.RNG):
+        return k3_windows(label, plane, pos[:, 0] + cen[:, 0] - rng,
+                          pos[:, 1] + cen[:, 1] - rng, src, rng)
 
     for R, C in [(6, 8), (3, 3), (1, 5), (5, 1)]:
         k3_vs_plain(f"{R}x{C} (N={R * C})",
                     *search_case(np.random.default_rng(R * 1000 + C), R, C))
+    for rng in (7, 1):
+        k3_vs_plain(f"6x8 rng {rng}", *search_case(
+            np.random.default_rng(6008 + rng), 6, 8), rng=rng)
+    # windows starting at every column mod 4, N = 40
+    gen = np.random.default_rng(404)
+    k3_windows("wx mod 4 = 0, 1, 2, 3 (N=40)",
+               gen.integers(0, 256, (120, 130)).astype(np.uint8),
+               gen.integers(0, 73, 40).astype(np.int32),
+               (4 * gen.integers(0, 20, 40) + np.arange(40) % 4)
+               .astype(np.int32),
+               gen.integers(0, 256, (40, 16, 16)).astype(np.int32))
+    # saturation: plane 0, source 255, every SAD 255 * 256
+    sat = k3_windows("plane 0, source 255 (N=24)",
+                     np.zeros((100, 110), np.uint8),
+                     np.arange(24, dtype=np.int32) * 2,
+                     np.arange(24, dtype=np.int32) * 2 + 1,
+                     np.full((24, 16, 16), 255, np.int32))
+    if not bool((sat == 65280).all()):
+        fail("K3 does not reach SAD 65280 on plane 0 / source 255")
     R, C = 68, 120
     ref_pl = bordered(src_frames[0][0], R, C)
     blocks = bordered(src_frames[1][0], R, C)[32:-32, 32:-32] \
@@ -564,23 +591,60 @@ def main():
     err["sad_grid"] = max(err["sad_grid"], int((got - want).abs().max()))
     if err["sad_grid"]:
         fail("K3 disagrees with sad_grid_plain on inter frame 1")
-    for _ in range(3):
-        me_sad.sad_grid(*k3_args)
+    # the launch alone (the wrapper's argument checks read two flags back
+    # to the host, which leaves the card idle between launches), and
+    # through the wrapper
+    raw = (ref_plane, k3_args[1].to(torch.int32).contiguous(),
+           k3_args[2].to(torch.int32).contiguous(), yb.contiguous(),
+           torch.empty_like(got), ME.RNG, me_sad._plan(ME.RNG))
     e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
-    e0.record()
-    for _ in range(20):
-        me_sad.sad_grid(*k3_args)
-    e1.record()
-    torch.cuda.synchronize()
-    k_ms["k3"] = e0.elapsed_time(e1) / 20
+    for key, call in (("k3", lambda: me_sad._launch(*raw)),
+                      ("k3_wrapper", lambda: me_sad.sad_grid(*k3_args))):
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(50):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+        k_ms[key] = e0.elapsed_time(e1) / 50
+    if not torch.equal(raw[4], got):
+        fail("K3's timed launches disagree with its first result")
     plain_ms["k3"] = [time_plain(lambda: me_sad.sad_grid_plain(*k3_args))
                       for _ in range(2)][1:]
     n_mb, n_off = yb.shape[0], (2 * ME.RNG + 1) ** 2
     k3_bounds = [((ref_plane.numel() + n_mb * (256 * 4 + 8)
                    + n_mb * n_off * 4) / HBM_BYTES_PER_S,
                   n_mb * n_off * 256 * 3 / INT_OPS_PER_S)]
-    print(f"K3 sad_grid: {k_ms['k3']:.4f} ms/launch (N={n_mb}), plain "
-          f"{plain_ms['k3'][0]:.1f} ms, bound "
+    # yardstick (never called by the port): torch.cdist(p=1) on float32,
+    # exact below 2^24; the candidates are unfolded outside the timed
+    # window, 1020 MBs (1.1 GB) at a time, and the chunk times summed
+    a48 = torch.arange(2 * ME.RNG + 16, device=dev)
+    lib_ms = {"k3": 0.0}
+    for c0 in range(0, n_mb, 1020):
+        sl = slice(c0, c0 + 1020)
+        win = ref_plane[(k3_args[1][sl, None] + a48)[:, :, None].long(),
+                        (k3_args[2][sl, None] + a48)[:, None, :].long()]
+        cand = win.float().unfold(1, 16, 1).unfold(2, 16, 1) \
+            .reshape(-1, n_off, 256)
+        x = yb[sl].reshape(-1, 1, 256).float()
+        if c0 == 0:
+            torch.cdist(x, cand, p=1)
+        torch.cuda.synchronize()
+        e0.record()
+        d = torch.cdist(x, cand, p=1)
+        e1.record()
+        torch.cuda.synchronize()
+        lib_ms["k3"] += e0.elapsed_time(e1)
+        if not torch.equal(d.reshape(got[sl].shape).to(torch.int32),
+                           got[sl]):
+            fail("torch.cdist(p=1) disagrees with K3 on inter frame 1")
+        del win, cand, d
+    print(f"K3 sad_grid: {k_ms['k3']:.4f} ms/launch alone "
+          f"({k_ms['k3_wrapper']:.4f} through the wrapper) (N={n_mb}), plain "
+          f"{plain_ms['k3'][0]:.1f} ms, torch.cdist(p=1) "
+          f"{lib_ms['k3']:.4f} ms (== K3), bound "
           f"{max(k3_bounds[0]) * 1e3:.4f} ms [{card}]", flush=True)
 
     kernels = []
@@ -599,7 +663,8 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "max_abs_diff": err[name],
             "ms": k_ms[key], "plain_ms": statistics.mean(plain_ms[key]),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms.get(key),
             "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

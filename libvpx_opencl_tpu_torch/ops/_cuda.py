@@ -36,7 +36,8 @@ KERNELS = {
                      [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP,
                       _VP]),
     "sad_grid": ("sad_grid.cu", "sad_grid",
-                 [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _VP]),
+                 [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                  _VP]),
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its

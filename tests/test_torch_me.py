@@ -12,7 +12,8 @@ ops/me_sad.py):
   * subpel_refine, near_mv_lattice (also vs the host Encoder's
     _find_near), intra_mode_preds / intra_mode_costs at 16 and 8.
 On the CPU the wrapper sad_grid runs the plain version; the kernel itself
-is held against it on a card (cuda marker).
+is held against it on a card (cuda marker) at rng 16, 7 and 1 and with
+odd window columns. Both versions refuse source values outside [0, 255].
 """
 import numpy as np
 import jax.numpy as jnp
@@ -113,6 +114,18 @@ def test_sad_grid_counts_no_launch_on_cpu_and_rejects_bad_windows():
         with pytest.raises(ValueError, match="int32"):
             fn(_t(c["plane"]), _t(c["wy"]), _t(c["wx"]),
                _t(c["src"].astype(np.int64)))
+
+
+def test_sad_grid_rejects_source_values_outside_bytes():
+    """The kernel packs source pixels into bytes: both versions refuse a
+    value it could not hold."""
+    c = _search_case(3, 3, 1)
+    for fn in (me_sad.sad_grid, me_sad.sad_grid_plain):
+        for v in (-1, 256):
+            src = c["src"].copy()
+            src[4, 7, 9] = v
+            with pytest.raises(ValueError, match=r"\[0, 255\]"):
+                fn(_t(c["plane"]), _t(c["wy"]), _t(c["wx"]), _t(src))
 
 
 @pytest.fixture(scope="module")
@@ -229,14 +242,24 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", [(6, 8), (3, 3), (1, 5), (5, 1)])
-def test_sad_grid_kernel_matches_plain_on_card(cuda_device, geom):
+@pytest.mark.parametrize("geom, rng, odd_wx", [
+    ((6, 8), 16, False), ((3, 3), 16, False), ((1, 5), 16, False),
+    ((5, 1), 16, False), ((6, 8), 7, False), ((6, 8), 1, False),
+    ((3, 3), 16, True)])
+def test_sad_grid_kernel_matches_plain_on_card(cuda_device, geom, rng,
+                                               odd_wx):
     c = _search_case(*geom, 3)
+    c["wy"] = c["mb_pos"][:, 0] + c["centers"][:, 0] - rng
+    wx = c["mb_pos"][:, 1] + c["centers"][:, 1] - rng
+    if odd_wx:
+        wx = np.where(wx % 2, wx, np.where(wx > 0, wx - 1, wx + 1))
+    c["wx"] = wx.astype(np.int32)
     args = [_t(c[k]).to(cuda_device) for k in ("plane", "wy", "wx", "src")]
     before = _cuda.launches["sad_grid"]
-    got = me_sad.sad_grid(*args)
+    got = me_sad.sad_grid(*args, rng)
     torch.cuda.synchronize()
     assert _cuda.launches["sad_grid"] == before + 1
-    assert torch.equal(got, me_sad.sad_grid_plain(*args))
+    assert tuple(got.shape) == (geom[0] * geom[1], 2 * rng + 1, 2 * rng + 1)
+    assert torch.equal(got, me_sad.sad_grid_plain(*args, rng))
     assert torch.equal(got.cpu(), me_sad.sad_grid_plain(
-        *(_t(c[k]) for k in ("plane", "wy", "wx", "src"))))
+        *(_t(c[k]) for k in ("plane", "wy", "wx", "src")), rng))
