@@ -11,8 +11,9 @@ plain PyTorch version, decodes tests/vectors/bench_1080p.ivf (30 frames,
 1920x1080) through the port's entry point on the card with a per-frame
 MD5 gate, then six more conformance streams, encodes four of the decoded
 1080p frames (1 key + 3 inter) through TorchEncoder on the card with a
-closed-loop gate, and times decode, encode and the kernels. Any failure
-raises (exit code != 0). It prints, in order:
+closed-loop gate, under SLICE2_SF and then at the default speed features
+(B_PRED and trellis on), and times decode, encode and the kernels. Any
+failure raises (exit code != 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
   * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
@@ -32,16 +33,25 @@ raises (exit code != 0). It prints, in order:
     source 255 (every SAD 65280) and at 68x120 on a decoded 1080p frame:
     exact equality; ties on a constant plane resolved on the card as on
     the CPU;
-  * a QCIF clip encoded on the card and on the CPU: payload bytes equal;
-  * the 1080p encode: bytes, luma PSNR, K3/K2 launches per frame (K2
-    once), the
-    payload decoded by TorchDecoder on the card equal to the encoder's
-    reconstruction; full_search through K3 equal to full_search through
-    the plain version on an inter frame's tensors;
+  * a QCIF clip encoded under SLICE2_SF on the card and on the CPU:
+    payload bytes equal;
+  * the 1080p encode under SLICE2_SF: bytes, luma PSNR, K3/K2 launches per
+    frame (K3 once per reference searched, K2 once), the payload decoded
+    by TorchDecoder on the card equal to the encoder's reconstruction;
+    full_search through K3 equal to full_search through the plain version
+    on an inter frame's tensors;
   * encode frames/s over the inter frames, the keyframe's seconds, the
     encode wavefront's seconds on the keyframe, K3's time per launch and
     that of torch.cdist(p=1) on the same candidates (its yardstick, held
     equal to K3);
+  * at the default speed features: the QCIF clip's payloads, and the
+    packets of the port's CodecEncoder, equal on the card and the CPU;
+  * the 1080p encode at the default speed features with the same gates:
+    per frame its bytes beside the SLICE2_SF bytes, B_PRED MBs, inter MBs
+    the trellis ran on, dependency levels walked and seconds; then a
+    second encode of the same frames timing the B_PRED decision
+    candidate, the encode wavefront, its B_PRED lanes and the trellis,
+    each synchronised;
   * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -108,9 +118,11 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import numpy as np
+    from libvpx_opencl_tpu_torch import api
     from libvpx_opencl_tpu_torch.models import torch_decoder as TD
     from libvpx_opencl_tpu_torch.models import torch_encoder as TE
     from libvpx_opencl_tpu_torch.models import wavefront as EW
+    from libvpx_opencl_tpu_torch.models.refdec import INTRA_FRAME
     from libvpx_opencl_tpu_torch.ops import _cuda
     from libvpx_opencl_tpu_torch.ops import me as ME
     from libvpx_opencl_tpu_torch.ops import me_sad
@@ -119,6 +131,7 @@ def main():
     from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -474,8 +487,8 @@ def main():
         small[where] = [enc.encode_frame(*f) for f in synth_clip(176, 144, 3)]
     if small["cpu"] != small["cuda"]:
         fail("QCIF payloads encoded on the card differ from the CPU's")
-    print(f"encode QCIF 3 frames: card payloads == CPU payloads "
-          f"({[len(p) for p in small['cuda']]} bytes)", flush=True)
+    print(f"encode QCIF 3 frames under SLICE2_SF: card payloads == CPU "
+          f"payloads ({[len(p) for p in small['cuda']]} bytes)", flush=True)
 
     # -- main path 2: encode 1 key + 3 inter 1080p frames ------------------
     def new_encoder():
@@ -497,10 +510,12 @@ def main():
     enc = new_encoder()
     dec = TD.TorchDecoder(device="cuda")
     enc_launches = {"sad_grid": 0, "lf_wavefront": 0}
+    slice2_bytes = []
     for i, frame in enumerate(src_frames):
         want_k3 = refs_searched(enc) if i else 0
         before = dict(W.launches)
         payload = enc.encode_frame(*frame)
+        slice2_bytes.append(len(payload))
         k3 = W.launches["sad_grid"] - before["sad_grid"]
         k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
         enc_launches["sad_grid"] += k3
@@ -647,6 +662,120 @@ def main():
           f"{lib_ms['k3']:.4f} ms (== K3), bound "
           f"{max(k3_bounds[0]) * 1e3:.4f} ms [{card}]", flush=True)
 
+    # -- default speed features (B_PRED + trellis): card == CPU on QCIF ---
+    small = {}
+    for where in ("cpu", "cuda"):
+        enc = TE.TorchEncoder(176, 144, qindex=24, device=where)
+        payloads, bpred = [], []
+        for f in synth_clip(176, 144, 3):
+            payloads.append(enc.encode_frame(*f))
+            bpred.append(int((enc.mode[1:, 1:] == W.B_PRED_M).sum()))
+        codec = api.CodecEncoder(api.EncoderConfig(176, 144), device=where)
+        for f in synth_clip(176, 144, 3):
+            codec.encode(f)
+        small[where] = (payloads, list(codec.get_cx_data()), bpred)
+    if small["cpu"][0] != small["cuda"][0]:
+        fail("default-feature QCIF payloads encoded on the card differ from "
+             "the CPU's")
+    if small["cpu"][1] != small["cuda"][1]:
+        fail("CodecEncoder's QCIF packets on the card differ from the CPU's")
+    print(f"encode QCIF 3 frames at default features (B_PRED, trellis): card "
+          f"payloads == CPU payloads ({[len(p) for p in small['cuda'][0]]} "
+          f"bytes, B_PRED MBs {small['cuda'][2]}); CodecEncoder card "
+          f"packets == CPU packets", flush=True)
+
+    # -- main path 3: 1 key + 3 inter 1080p frames at default features ---
+    def default_encoder():
+        return TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
+
+    def frame_shape(enc):
+        """(intra MBs, B_PRED MBs, levels the encode wavefront walked)"""
+        intra = (enc.reff[1:, 1:] == INTRA_FRAME).reshape(-1)
+        bpred = (enc.mode[1:, 1:] == W.B_PRED_M).reshape(-1)
+        lv = EW.intra_levels(enc.R, enc.C, intra, bpred)
+        return int(intra.sum()), int(bpred.sum()), int(lv.max()) + 1
+
+    for name in W.launches:
+        W.launches[name] = 0
+    enc = default_encoder()
+    dec = TD.TorchDecoder(device="cuda")
+    def_launches = {"sad_grid": 0, "lf_wavefront": 0}
+    for i, frame in enumerate(src_frames):
+        want_k3 = refs_searched(enc) if i else 0
+        before = dict(W.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = enc.encode_frame(*frame)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k3 = W.launches["sad_grid"] - before["sad_grid"]
+        k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
+        def_launches["sad_grid"] += k3
+        def_launches["lf_wavefront"] += k2
+        show, planes = dec.decode_frame(payload)
+        recon = enc.ref_last.visible()
+        p = psnr(frame[0], recon[0])
+        n_intra, n_bpred, levels = frame_shape(enc)
+        print(f"encode 1080p default features frame {i} "
+              f"({'key' if i == 0 else 'inter'}): {len(payload)} bytes "
+              f"({slice2_bytes[i]} under SLICE2_SF), luma PSNR {p:.2f} dB, "
+              f"B_PRED MBs {n_bpred}, inter MBs through the trellis "
+              f"{enc.R * enc.C - n_intra}, levels walked {levels}, "
+              f"{secs:.3f} s, K3 launches {k3}, K2 launches {k2} [{card}]",
+              flush=True)
+        if k3 != want_k3 or k2 != 1:
+            fail(f"default-feature encode frame {i}: K3 launched {k3} times "
+                 f"for {want_k3} references, K2 {k2} times for one loop "
+                 f"filter")
+        if not show or any(not np.array_equal(a, b)
+                           for a, b in zip(planes, recon)):
+            fail(f"default-feature encode frame {i}: the decoded payload "
+                 f"differs from the encoder's reconstruction")
+        if p < 30.0:
+            fail(f"default-feature encode frame {i}: luma PSNR {p:.2f} dB "
+                 f"< 30 dB")
+    for name, count in def_launches.items():
+        launches[name] += count
+
+    # -- timed split of the default-feature encode: the B_PRED decision
+    # candidate, the B_PRED lanes and the trellis, each synchronised ------
+    split, stages = [], {}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    probes = [(TE, "_bpred_rd", "bpred_decision"),
+              (EW, "_bpred_lanes", "bpred_lanes"),
+              (TE, "_trellis_mbs", "trellis"),
+              (EW, "encode_recon_planes", "encode_wavefront")]
+    saved = [getattr(mod, attr) for mod, attr, _ in probes]
+    for (mod, attr, key), fn in zip(probes, saved):
+        setattr(mod, attr, timed(fn, key))
+    try:
+        enc = default_encoder()
+        for frame in src_frames:
+            stages.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc.encode_frame(*frame)
+            torch.cuda.synchronize()
+            split.append(dict(stages, total=time.perf_counter() - t0))
+    finally:
+        for (mod, attr, _), fn in zip(probes, saved):
+            setattr(mod, attr, fn)
+    for i, row in enumerate(split):
+        print(f"default-feature split, frame {i}: " + ", ".join(
+            f"{k} {row.get(k, 0.0):.4f} s" for k in (
+                "total", "bpred_decision", "encode_wavefront", "bpred_lanes",
+                "trellis")) + f" [{card}]", flush=True)
+
     kernels = []
     for key, name, src, replaces, bs in (
             ("k1", "intra_wavefront", "libvpx_opencl_tpu_torch/csrc/"
@@ -666,6 +795,8 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms.get(key),
             "card": card})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          f"card check to here", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

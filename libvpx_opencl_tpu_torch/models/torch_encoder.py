@@ -7,11 +7,13 @@ torch_decoder):
      exhaustive step-1 SAD grid through K3, the hand-written CUDA kernel
      csrc/sad_grid.cu, or the step-2 grid + refine; then half/quarter-pel
      refine through the production MC filter) and token-cost RD choice
-     among {DC,V,H,TM} intra and {ZERO,NEAREST,NEAR,NEW} x references;
-  B. encode: MC predictions for the chosen MVs, then the encode wavefront
+     among {DC,V,H,TM} intra, B_PRED and {ZERO,NEAREST,NEAR,NEW} x
+     references;
+  B. encode: MC predictions for the chosen MVs, the trellis (optimize_b)
+     on the inter MBs' levels, then the encode wavefront
      (models/wavefront.py): intra predictions from true reconstructed
-     neighbours, FDCT/WHT + regular quantization, decoder-exact in-loop
-     reconstruction;
+     neighbours, the B_PRED sub-block recursion, FDCT/WHT + regular
+     quantization, decoder-exact in-loop reconstruction;
   C. loop filter through K2 (csrc/lf_wavefront.cu) in place on the
      reconstructed planes + border extension -> device-resident reference
      frames for the next frame's search.
@@ -20,11 +22,14 @@ The host packs the bitstream (the mode/MV/token entropy layer of the host
 Encoder); MVs are mapped to their cheapest coding mode against the exact
 near-MV lattice at pack time.
 
-Supported speed features: `exhaustive_me` and `multi_ref`, on or off.
-B_PRED (sf.bpred) and trellis quantization (sf.trellis) are not ported
-yet (ROADMAP Queue 1 item 9c): encode_frame raises NotImplementedError if
-either is on. SLICE2_SF is the feature set this module supports in full;
-callers set `enc.sf` after construction, as on the JAX class.
+Every speed feature the JAX class reads is supported, on or off:
+`exhaustive_me`, `multi_ref`, `bpred` (the B_PRED candidate in the inter
+decision, `_bpred_rd`, and the encode wavefront's B_PRED lanes) and
+`trellis` (optimize_b on the inter MBs' levels before their
+reconstruction, `_trellis_mbs`). The default is the host ladder's speed 0,
+with all of them on; SLICE2_SF (no B_PRED, no trellis) is kept as a named
+feature set. Callers may set `enc.sf` after construction, as on the JAX
+class.
 
 Entry points run on `device="cuda"` unless the caller passes "cpu" (the
 tests do); there is no fallback from one to the other.
@@ -38,6 +43,7 @@ from ..ops import me as ME
 from ..ops import predict as P
 from ..ops import rd_device as RD
 from ..ops import tables as T
+from ..ops import transforms as tf
 from ..ops import wavefront as W
 from ..utils import native
 from . import rdopt, refdec, wavefront as wf
@@ -46,7 +52,8 @@ from .refdec import (DC_PRED, INTRA_FRAME, LAST_FRAME, GOLDEN_FRAME,
                      ALTREF_FRAME, BORDER, dequant_factors)
 from .torch_decoder import B, B2, DeviceFrame, _extend_borders
 
-#: the speed features this port of the device encoder supports in full
+#: a faster feature set: exhaustive search and multi-reference, no B_PRED,
+#: no trellis
 SLICE2_SF = SpeedFeatures(rd=True, trellis=False, splitmv=False, bpred=False,
                           exhaustive_me=True, multi_ref=True)
 
@@ -54,9 +61,9 @@ SLICE2_SF = SpeedFeatures(rd=True, trellis=False, splitmv=False, bpred=False,
 def _tcb_tables(device):
     """Banded device token-cost tables under the default coefficient
     probabilities (the host encoder's _tc model). Types: 0 Y-with-Y2,
-    1 Y2, 2 UV (type 3, Y-without-Y2, belongs to B_PRED)."""
+    1 Y2, 2 UV, 3 Y-without-Y2 (B_PRED)."""
     tc = _default_token_costs()
-    return tuple(RD.banded_token_costs(tc, t).to(device) for t in range(3))
+    return tuple(RD.banded_token_costs(tc, t).to(device) for t in range(4))
 
 
 def _chroma_mv(mv):
@@ -106,12 +113,67 @@ def _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb, dqu, qidx, tcb2,
             duv.gather(0, best[None])[0])
 
 
-def _decide_rd_inter(R, C, n_refs, me_step,
+def _bpred_rd(R, C, src_y_pl, yb, dq1, qidx, tcb3, bmode_cost, rdmult,
+              rddiv):
+    """B_PRED candidate rate/dist from SOURCE neighbours
+    (rd_pick_intra4x4mby_modes role, rdopt.c; decision only: the encode
+    wavefront re-picks the sub-modes from true reconstructed neighbours).
+    All N*16 sub-blocks at once: each takes the best of 10 sub-modes under
+    context-0 token rates, then the MB rate is re-costed with the contexts
+    chained inside the MB.
+
+    src_y_pl: the bordered source luma plane the encoder uploads (row and
+    column B-1 and one tile past the MB grid's right edge are read).
+    Returns (rate [N] int32, dist [N] float32). The squared errors are
+    summed exactly (int64) and rounded once, as `RD.rd_y16`'s; the JAX
+    function sums float32 squares, which is the same below 2^24."""
+    N = R * C
+    SR, SC = 4 * R, 4 * C                       # sub-block grid
+    # neighbours of every sub-block position by strided slices: the row
+    # above each sub-block row, with one extra tile right for above-right
+    rows_a = src_y_pl[B - 1:B - 1 + 16 * R:4].to(torch.int32)
+    tiles = rows_a[:, B:B + 4 * (SC + 1)].reshape(SR, SC + 1, 4)
+    a8g = torch.cat([tiles[:, :SC], tiles[:, 1:]], 2)      # [SR, SC, 8]
+    colw = src_y_pl[B:B + 16 * R, B - 1:B - 1 + 16 * C:4].to(torch.int32)
+    l4g = colw.reshape(SR, 4, SC).transpose(1, 2)          # [SR, SC, 4]
+    tlg = rows_a[:, B - 1:B - 1 + 16 * C:4]                # [SR, SC]
+
+    def to_mb_major(x):
+        """raster sub-block grid -> (MB, sub-block) order"""
+        t = x.reshape(R, 4, C, 4, *x.shape[2:]).transpose(1, 2)
+        return t.reshape(N * 16, *x.shape[2:])
+
+    preds = P.bpred_4x4_all(to_mb_major(a8g), to_mb_major(l4g),
+                            to_mb_major(tlg))              # [10,NB,4,4]
+    NB = N * 16
+    resid = RD._mb_blocks(yb).reshape(NB, 4, 4)[None] - preds
+    coefs = tf.fdct4x4_batch(resid.reshape(10 * NB, 4, 4)).reshape(10, NB, 16)
+    dqb = dq1.repeat_interleave(16, 0)                     # [NB, 2]
+    q, _ = tf.regular_quant_batch(coefs, dqb[None],
+                                  qidx.repeat_interleave(16, 0)[None], False)
+    dist10 = RD._sq_err(coefs, q, RD._dq_vec(dqb)[None])   # [10, NB] int64
+    rate10, _ = RD.block_rate(q, tcb3, 0, 0)
+    rd10 = RD.rdc(rate10 + bmode_cost[:, None], dist10.double() / 4.0,
+                  rdmult, rddiv)
+    bm = torch.argmin(rd10, 0)                             # [NB]
+    q_best = q.gather(0, bm[None, :, None].expand(1, NB, 16))[0]
+    dist_best = dist10.gather(0, bm[None])[0]
+    # within-MB chained contexts for the final MB rate
+    nz = (q_best != 0).any(-1).to(torch.int32).reshape(N, 16)
+    rate_f, _ = RD.block_rate(q_best, tcb3, 0,
+                              RD._ctx_grid(nz, 4).reshape(NB))
+    b_rate = (rate_f + bmode_cost[bm]).reshape(N, 16).sum(-1)
+    return b_rate.to(torch.int32), \
+        dist_best.reshape(N, 16).sum(-1).to(torch.float32)
+
+
+def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
                      refs_y, refs_u, refs_v, src_y_pl, src_u_pl, src_v_pl,
                      yb, ub, vb, centers, taps, lo_r, hi_r, lo_c, hi_c,
-                     mvcost, prev8, sadpb, tcb0, tcb1, tcb2,
+                     mvcost, prev8, sadpb, tcb0, tcb1, tcb2, tcb3,
                      dq1, dq2, dqu, qidx, rdmult, rddiv, ymode_cost,
-                     uvmode_cost, ci0, ci1, modectx, c0tab, c1tab):
+                     uvmode_cost, bmode_cost, ci0, ci1, modectx, c0tab,
+                     c1tab):
     """Program A (RD form): per-reference motion search + token-cost RD
     mode decision over {DC,V,H,TM} intra and
     {ZEROMV, NEARESTMV, NEARMV, NEWMV} x {LAST, GOLDEN, ALTREF}: the
@@ -120,10 +182,12 @@ def _decide_rd_inter(R, C, n_refs, me_step,
     mode-signaling costs come from a device near-MV lattice built over the
     LAST search field. Intra predictions come from source neighbours
     (decision approximation; the encode wavefront reconstructs from true
-    neighbours). The JAX function's B_PRED candidate is not ported yet.
+    neighbours). With use_bpred the B_PRED candidate (`_bpred_rd`, fixed
+    inter-frame sub-mode costs bmode_cost) joins them.
 
     refs_y [nr,H,W], refs_u/refs_v [nr,Hc,Wc]; ci1 [nr] per-ref header
-    cost; modectx [6,4] MODE_CONTEXTS; c0tab/c1tab [256] bit-cost tables.
+    cost; ymode_cost [5]; modectx [6,4] MODE_CONTEXTS; c0tab/c1tab [256]
+    bit-cost tables.
     Returns (mv [N,2], ref_k [N] -1=intra else 0..nr-1, ymode, uvmode)."""
     N = R * C
     dev = yb.device
@@ -198,11 +262,18 @@ def _decide_rd_inter(R, C, n_refs, me_step,
             rate_rows.append(ci1[k] + mode_costs[j] + extra +
                              ry[4 + i] + ruv_in[i])
             dist_rows.append(dy[4 + i] / 4.0 + duv_in[i] / 4.0)
+    if use_bpred:
+        br, bd = _bpred_rd(R, C, src_y_pl, yb, dq1, qidx, tcb3, bmode_cost,
+                           rdmult, rddiv)
+        rate_rows.append(ci0 + ymode_cost[4] + br + ruv_i)
+        dist_rows.append(bd / 4.0 + duv_i / 4.0)
     rdall = RD.rdc(torch.stack(rate_rows, 0), torch.stack(dist_rows, 0),
                    rdmult, rddiv)
     best = torch.argmin(rdall, dim=0)
-    ymode = torch.argmin(rdall[:4], dim=0).to(torch.int32)
-    inter = best >= 4
+    is_bpred = best == 4 + Kin        # never true without the B_PRED row
+    ymode = torch.where(is_bpred, 4, torch.argmin(rdall[:4], dim=0)) \
+        .to(torch.int32)
+    inter = (best >= 4) & ~is_bpred
     ref_k = torch.where(inter, (best - 4) // 4, -1).to(torch.int32)
     picked = allmv.gather(
         0, (best - 4).clamp(0, Kin - 1)[None, :, None].expand(1, N, 2))[0]
@@ -231,15 +302,41 @@ def _decide_rd_key(R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
     return torch.argmin(rdall, dim=0).to(torch.int32), uvbest
 
 
-def _encode_device(R, C, refs_y, refs_u, refs_v, refk,
+def _trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
+                 rdmult, rddiv):
+    """optimize_b on M macroblocks' levels (the vp8_optimize_mby/mbuv
+    role): coefs, q0 [M,25,16] and e0 [M,25] as `wf.transform_quant`
+    returns them. The entropy contexts chain inside the MB from the
+    regular quantizer's eobs. Returns (qcoeff [M,25,16], eobs [M,25]),
+    Y eobs at least 1."""
+    m = coefs.shape[0]
+    ctx_y = RD._ctx_grid((e0[:, :16] > 1).to(torch.int32), 4)
+    qy, ey = RD.trellis_batch(coefs[:, :16], q0[:, :16], dq_y1[:, None],
+                              tcb0, 1, 4.0, ctx_y, rdmult, rddiv)
+    qy2, ey2 = RD.trellis_batch(coefs[:, 24], q0[:, 24], dq_y2, tcb1, 0,
+                                16.0, 0, rdmult, rddiv)
+    nzuv = (e0[:, 16:24] > 0).to(torch.int32).reshape(m, 2, 4)
+    quv, euv = RD.trellis_batch(coefs[:, 16:24], q0[:, 16:24],
+                                dq_uv[:, None], tcb2, 0, 2.0,
+                                RD._ctx_grid(nzuv, 2).reshape(m, 8), rdmult,
+                                rddiv)
+    return (torch.cat([qy, quv, qy2[:, None]], 1),
+            torch.cat([ey.clamp(min=1), euv, ey2[:, None]], 1))
+
+
+def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
                    src_y_blocks, src_u_blocks, src_v_blocks,
                    mode, uv_mode, intra, mv8, taps, dq_y1, dq_y2, dq_uv,
-                   qidx):
-    """Program B: MC predictions (per-MB reference selection) + encode
-    wavefront (the JAX function's whole-frame trellis pass is not ported
-    yet). Returns (qcoeff int16 [N,25,16], eobs [N,25], uv_mode, y, u, v,
-    bmodes): the reconstruction as fresh zero-bordered uint8 planes, not
-    yet loop-filtered."""
+                   qidx, tcb0, tcb1, tcb2, bmode_cost, rdmult, rddiv):
+    """Program B: MC predictions (per-MB reference selection), the trellis
+    on the inter MBs (use_trellis: SpeedFeatures.trellis), then the encode
+    wavefront, whose B_PRED lanes run when bmode_cost is given (the
+    caller passes None on frames without a B_PRED MB). The JAX function
+    runs the trellis on every MB and keeps it for the inter ones; each
+    block's result depends only on its own MB, so running it on the inter
+    MBs alone gives the same levels. Returns (qcoeff int16 [N,25,16], eobs
+    [N,25], uv_mode, y, u, v, bmodes): the reconstruction as fresh
+    zero-bordered uint8 planes, not yet loop-filtered."""
     N = R * C
     dev = src_y_blocks.device
     mb = torch.arange(N, device=dev)
@@ -252,10 +349,22 @@ def _encode_device(R, C, refs_y, refs_u, refs_v, refk,
     pred_u, pred_v = _mc_uv(refs_u, refs_v, rk, mb_r, mb_c, mv8, taps)
     # chroma intra mode: RD-chosen by the decision program for intra MBs
     uv_mode = torch.where(intra, uv_mode, DC_PRED)
-    qcoeff, eobs, y, u, v = wf.encode_recon_planes(
+    ext = None
+    if use_trellis:
+        # the wavefront's inter batch, in MB order (one small host copy)
+        idx = torch.from_numpy(np.flatnonzero(~intra.cpu().numpy())) \
+            .to(dev)
+        if idx.shape[0]:
+            dqs = (dq_y1[idx], dq_y2[idx], dq_uv[idx])
+            coefs, q0, e0 = wf.transform_quant(
+                src_y_blocks[idx], src_u_blocks[idx], src_v_blocks[idx],
+                pred_y[idx], pred_u[idx], pred_v[idx], *dqs, qidx[idx])
+            ext = _trellis_mbs(coefs, q0, e0, *dqs, tcb0, tcb1, tcb2, rdmult,
+                               rddiv)
+    qcoeff, eobs, y, u, v, bmodes = wf.encode_recon_planes(
         R, C, src_y_blocks, src_u_blocks, src_v_blocks, pred_y, pred_u,
-        pred_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx)
-    bmodes = torch.zeros(N, 16, dtype=torch.int32, device=dev)
+        pred_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx, ext,
+        bmode_cost, rdmult, rddiv)
     return qcoeff.to(torch.int16), eobs, uv_mode, y, u, v, bmodes
 
 
@@ -305,6 +414,8 @@ class TorchEncoder(Encoder):
         self.ref_alt = z
         self.prev_mv = np.zeros((R * C, 2), np.int32)
         self._pending = None
+        #: the last committed frame's reconstruction, as a decoder shows it
+        self.frame_to_show = None
         self._tcb = _tcb_tables(self.device)
 
     def _dev(self, a, dtype=np.int32):
@@ -315,11 +426,6 @@ class TorchEncoder(Encoder):
     def encode_frame(self, y, u, v, keyframe=None, refresh_last=True,
                      refresh_golden=None, commit=True, show=True,
                      refresh_alt=False):
-        if self.sf.bpred or self.sf.trellis:
-            raise NotImplementedError(
-                "TorchEncoder does not support sf.bpred / sf.trellis yet "
-                "(ROADMAP Queue 1 item 9c); set enc.sf = SLICE2_SF or "
-                "another SpeedFeatures with both off")
         if keyframe is None:
             keyframe = self.frame_count == 0
         if keyframe:
@@ -394,7 +500,8 @@ class TorchEncoder(Encoder):
                              device=self.device)
         rdd_f = torch.tensor(float(rdd), dtype=torch.float32,
                              device=self.device)
-        tcb0, tcb1, tcb2 = self._tcb
+        tcb0, tcb1, tcb2, tcb3 = self._tcb
+        bmode_cost = j(rdopt.BMODE_COST)
 
         if keyframe:
             mv8 = np.zeros((N, 2), np.int32)
@@ -444,12 +551,13 @@ class TorchEncoder(Encoder):
                                     rdopt.cost1(self.prob_gf))
             me_step = 1 if self.sf.exhaustive_me else 2
             mv8_d, refk_d, ymode_d, uvb_d = self._decide_inter_fn(
-                R, C, len(ref_frames), me_step, refs_y, refs_u, refs_v,
+                R, C, len(ref_frames), me_step, bool(self.sf.bpred),
+                refs_y, refs_u, refs_v,
                 src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
                 j(centers), taps, lo_r, hi_r, lo_c, hi_c,
-                mvcost, j(self.prev_mv), sadpb, tcb0, tcb1, tcb2,
+                mvcost, j(self.prev_mv), sadpb, tcb0, tcb1, tcb2, tcb3,
                 dq1, dq2, dqu, qidx, rdm_f, rdd_f,
-                j(rdopt.YMODE_COST[:4]), j(rdopt.UV_MODE_COST),
+                j(rdopt.YMODE_COST[:5]), j(rdopt.UV_MODE_COST), bmode_cost,
                 ci0, j(ci1_list),
                 j(T.MODE_CONTEXTS), j(rdopt._C0), j(rdopt._C1))
             mv8 = mv8_d.cpu().numpy().astype(np.int32)
@@ -458,10 +566,14 @@ class TorchEncoder(Encoder):
         ymode = ymode_d.cpu().numpy().astype(np.int32)
         uvmode = uvb_d.cpu().numpy().astype(np.int32)
 
+        # frames without a B_PRED MB (every keyframe: _decide_rd_key has no
+        # B_PRED candidate) skip the wavefront's B_PRED lanes
+        has_bpred = bool((ymode == W.B_PRED_M).any())
         qcoeff_d, eobs_d, uv_mode_d, ry, ru, rv, bmodes_d = self._encode_fn(
-            R, C, refs_y, refs_u, refs_v, j(refk),
+            R, C, bool(self.sf.trellis), refs_y, refs_u, refs_v, j(refk),
             yb, ub, vb, j(ymode), j(uvmode), j(intra, bool), j(mv8), taps,
-            dq1, dq2, dqu, qidx)
+            dq1, dq2, dqu, qidx, tcb0, tcb1, tcb2,
+            bmode_cost if has_bpred else None, rdm_f, rdd_f)
         qcoeff = qcoeff_d.cpu().numpy()
         eobs = eobs_d.cpu().numpy()
         uv_mode = uv_mode_d.cpu().numpy()
@@ -491,11 +603,14 @@ class TorchEncoder(Encoder):
             self.skip = np.zeros((R, C), np.int32)
             native.map_mv_modes_native(native.get_lib(), self)
 
-        # skip decision (every MB here has a Y2 block: its 16 Y eobs
-        # start at 1)
+        # skip decision (B_PRED MBs have no Y2: e[24] == 0 and their Y
+        # eobs start at 0; every other MB's 16 Y eobs start at 1)
         self.skip = np.zeros((R, C), np.int32)
         if self.mb_no_coeff_skip:
-            self.skip = (self.eobs.sum(axis=2) - 16 == 0).astype(np.int32)
+            skip16 = self.eobs.sum(axis=2) - 16 == 0
+            skip_bp = self.eobs[:, :, :24].sum(axis=2) == 0
+            self.skip = np.where(self.mode[1:, 1:] == W.B_PRED_M, skip_bp,
+                                 skip16).astype(np.int32)
 
         # LF/pack overlap (the loopfilter_thread role, ethreading.c:29-57
         # / onyx_if.c:3071): enqueue the loop filter BEFORE packing. CUDA
@@ -518,6 +633,7 @@ class TorchEncoder(Encoder):
         keyframe, (cy, cu, cv), mv8 = self._pending
         self._pending = None
         new = DeviceFrame(cy, cu, cv, self.w, self.h)
+        self.frame_to_show = new
         if self.refresh_golden:
             self.ref_gold = new
         if self.refresh_alt:

@@ -2,10 +2,12 @@
 transform-domain distortions of quantized blocks under the frame's
 entropy model.
 
-Port of libvpx_opencl_tpu/ops/rd_device.py without trellis_batch (the
-reference's per-block costing: cost_coeffs rdopt.c:503-534,
-vp8_block_error / vp8_mbblock_error): every candidate mode of every
-macroblock is costed at once as whole-frame tensor ops.
+Port of libvpx_opencl_tpu/ops/rd_device.py (the reference's per-block
+costing: cost_coeffs rdopt.c:503-534, vp8_block_error /
+vp8_mbblock_error; and optimize_b, encodemb.c:224-466, as
+`trellis_batch`): every candidate mode of every macroblock is costed at
+once as whole-frame tensor ops, and the trellis runs over a batch of
+blocks, a step per scan position.
 
 What differs from the JAX file, and why the numbers do not:
   * the JAX file turns small-table lookups into one-hot contractions over
@@ -18,9 +20,14 @@ What differs from the JAX file, and why the numbers do not:
   * squared-error sums are taken exactly in int64 and rounded to float32
     once, so the result does not depend on a device's reduction order.
     The JAX file sums float32 squares, which is exact (and then equal)
-    while the sum stays below 2^24.
+    while the sum stays below 2^24;
+  * the trellis keeps its rates and errors in int64 (the JAX file's
+    float32 values are integers below 2^24, so exact too) and replaces
+    its one-hot `price` contraction, which has one non-zero term, by a
+    gather.
 
-`rdc` keeps the JAX file's float32 type and operation order.
+`rdc` keeps the JAX file's float32 type and rounds as the jitted JAX
+function does (see its docstring).
 """
 from __future__ import annotations
 
@@ -220,3 +227,133 @@ def rdc(rate, dist, rdmult, rddiv):
     d = torch.as_tensor(dist, device=fl.device).to(torch.float64)
     return (fl.to(torch.float64)
             + torch.as_tensor(rddiv).to(torch.float64) * d).to(torch.float32)
+
+
+INV_ZZ = tuple(int(v) for v in np.argsort(np.asarray(ZZ)))  # raster -> scan
+
+
+def trellis_batch(coefs, q, dq, tcb, i0, plane_rd_mult, ctx, rdmult, rddiv):
+    """optimize_b (encodemb.c:224-466) over a batch of 4x4 blocks: a
+    backward Viterbi over scan positions 15..i0 with two candidates per
+    non-zero level (the level, and one step toward zero where the
+    requantized value still brackets the coefficient), costing token
+    transitions under the frame's entropy model, then a forward walk down
+    the chosen chain.
+
+    coefs/q [..., 16] raster; dq [..., 2] (dc, ac); tcb [16,3,12] int32
+    banded costs on q's device; i0: 0, or 1 for Y-with-Y2; plane_rd_mult a
+    power of two (4.0 Y, 16.0 Y2, 2.0 UV); ctx [...] entropy context 0..2;
+    rdmult/rddiv float32 scalars (0-dim tensors or Python numbers).
+    Returns (levels [..., 16] raster int32, eob [...] int32).
+
+    Rates and errors are exact int64 (the JAX function's float32 values are
+    integers below 2^24, so exact too). Candidates are compared by `rdc`
+    with rdmult * plane_rd_mult, strictly (`<`), so ties keep candidate 0.
+    The JAX function computes its own `floor((128 + r*rm)/256) + rddiv*e`
+    in float32 inside a scan; `rdc`'s rounding (module docstring) gives the
+    same decisions: on the encoder's values 128 + r*rm rounds the same
+    fused or not (128 is a multiple of the float32 spacing there), and
+    rddiv*e + floor stays below 2^24. tests/test_torch_trellis.py holds
+    the two against `jax.jit` at qindex 0-127 on all three planes."""
+    shape = q.shape[:-1]
+    dev = q.device
+    qz = q.reshape(-1, 16)[:, ZZ].long()
+    cz = coefs.reshape(-1, 16)[:, ZZ].long()
+    dq = dq.expand(*shape, 2).reshape(-1, 2).long()
+    ctx = torch.as_tensor(ctx, device=dev).expand(shape).reshape(-1).long()
+    tcb = tcb.long()
+    toktab, valtab = _value_tables(dev)
+    toktab, valtab = toktab.long(), valtab.long()
+    m = qz.shape[0]
+    scan = torch.arange(16, device=dev)
+    eob = torch.where(qz != 0, scan + 1, 0).amax(-1)
+    rm = torch.as_tensor(rdmult, dtype=torch.float32, device=dev) \
+        * plane_rd_mult
+
+    def cost(r, e):
+        return rdc(r, e, rm, rddiv)
+
+    def token(a):
+        return toktab[_value_index(a)]
+
+    def value_cost(a):
+        return valtab[_value_index(a)]
+
+    zero = torch.zeros(m, dtype=torch.long, device=dev)
+    rate = [zero, zero]
+    err = [zero, zero]
+    tok = [torch.full_like(zero, EOB), torch.full_like(zero, EOB)]
+    next_pos = eob
+    # per-position chain outputs: the two candidate levels, each
+    # candidate's predecessor choice, the next non-zero position
+    qc = [torch.zeros(m, 16, dtype=torch.long, device=dev) for _ in range(2)]
+    bb = [torch.zeros(m, 16, dtype=torch.bool, device=dev) for _ in range(2)]
+    nxtp = torch.zeros(m, 16, dtype=torch.long, device=dev)
+    for i in range(15, i0 - 1, -1):
+        active = i < eob
+        x = qz[:, i]
+        czi = cz[:, i]
+        drc = dq[:, 0] if i == 0 else dq[:, 1]
+        is_nz = active & (x != 0)
+        is_z = active & (x == 0)
+        tn = tcb[min(i + 1, 15)]                          # [3, 12]
+        ax = x.abs()
+        # candidate 0: keep the level
+        g0 = next_pos < 16
+        pt0 = ax.clamp(max=2)
+        r0 = [rate[c] + torch.where(g0, tn[pt0, tok[c]], 0) for c in (0, 1)]
+        best0 = cost(r0[1], err[1]) < cost(r0[0], err[0])
+        dx = x * drc - czi
+        nrate0 = value_cost(ax) + torch.where(best0, r0[1], r0[0])
+        nerr0 = dx * dx + torch.where(best0, err[1], err[0])
+        # candidate 1: one step toward zero
+        shortcut = (ax * drc > czi.abs()) & (ax * drc < czi.abs() + drc)
+        x1 = torch.where(shortcut, x - x.sign(), x)
+        a1 = x1.abs()
+        t1n = token(a1)
+        tb = [torch.where(a1 == 0, torch.where(tok[c] == EOB, EOB, 0), t1n)
+              for c in (0, 1)]
+        pt1 = a1.clamp(max=2)
+        r1 = [rate[c] + torch.where(g0 & (tb[c] != EOB), tn[pt1, tok[c]], 0)
+              for c in (0, 1)]
+        best1 = cost(r1[1], err[1]) < cost(r1[0], err[0])
+        dx1 = torch.where(shortcut, dx - x.sign() * drc, dx)
+        nrate1 = value_cost(a1) + torch.where(best1, r1[1], r1[0])
+        nerr1 = dx1 * dx1 + torch.where(best1, err[1], err[0])
+        ntok1 = torch.where(best1, tb[1], tb[0])
+        qc[0][:, i] = torch.where(is_nz, x, 0)
+        qc[1][:, i] = torch.where(is_nz, x1, 0)
+        bb[0][:, i] = best0
+        bb[1][:, i] = best1
+        nxtp[:, i] = next_pos
+        rate = [torch.where(is_nz, nrate0, rate[0]),
+                torch.where(is_nz, nrate1, rate[1])]
+        err = [torch.where(is_nz, nerr0, err[0]),
+               torch.where(is_nz, nerr1, err[1])]
+        tok = [torch.where(is_nz, token(ax), tok[0]),
+               torch.where(is_nz, ntok1, tok[1])]
+        next_pos = torch.where(is_nz, i, next_pos)
+        # zero positions inside the eob: fold the ZERO token
+        for c in (0, 1):
+            pz = is_z & (tok[c] != EOB)
+            rate[c] = rate[c] + torch.where(pz, tn[0, tok[c]], 0)
+            tok[c] = torch.where(pz, 0, tok[c])
+
+    # base transition at i0 under the true entropy context
+    tb0 = tcb[i0]
+    rf = [rate[c] + tb0[ctx, tok[c]] for c in (0, 1)]
+    br = cost(rf[1], err[1]) < cost(rf[0], err[0])
+
+    # forward walk down the chosen chain
+    out = torch.zeros(m, 16, dtype=torch.long, device=dev)
+    out[:, :i0] = qz[:, :i0]
+    cur = next_pos
+    for i in range(i0, 16):
+        hit = (cur == i) & (i < eob)
+        out[:, i] = torch.where(hit, torch.where(br, qc[1][:, i],
+                                                 qc[0][:, i]), out[:, i])
+        br = torch.where(hit, torch.where(br, bb[1][:, i], bb[0][:, i]), br)
+        cur = torch.where(hit, nxtp[:, i], cur)
+    eob_out = torch.where(out != 0, scan + 1, 0).amax(-1)
+    return (out[:, INV_ZZ].to(torch.int32).reshape(*shape, 16),
+            eob_out.to(torch.int32).reshape(shape))

@@ -110,6 +110,7 @@ def test_default_device_needs_a_card(monkeypatch):
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import libvpx_opencl_tpu_torch\n"
+            "import libvpx_opencl_tpu_torch.api\n"
             "import libvpx_opencl_tpu_torch.models.torch_decoder\n"
             "import libvpx_opencl_tpu_torch.models.torch_encoder\n"
             "import libvpx_opencl_tpu_torch.models.encoder\n"

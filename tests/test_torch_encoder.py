@@ -10,8 +10,11 @@
     loop-filter deltas);
   * one mid-stream frame through load_encoder_state;
   * the recode contract (commit=False, then commit_frame), the step-2
-    search without multi_ref (closed loop), the features that are not
-    ported raise, the default device needs a card.
+    search without multi_ref (closed loop), the default device needs a
+    card.
+
+The default speed features (B_PRED and trellis on) are held against the
+JAX class in tests/test_torch_encoder_default.py.
 
 Each JAX reference runs once per module (the JAX encode wavefront is the
 slowest compile of the repository), at one geometry.
@@ -197,16 +200,6 @@ def test_step2_search_single_ref_closes_loop(frames, torch_run):
             assert np.array_equal(g, w), f"closed loop diverged, frame {i}"
         assert (enc.reff != GOLDEN_FRAME).all()
     assert payload != torch_run[2]["payload"]
-
-
-@pytest.mark.parametrize("feature", ["bpred", "trellis"])
-def test_unported_speed_features_raise(frames, feature):
-    enc = TE.TorchEncoder(W, H, qindex=Q, device="cpu")
-    assert enc.sf.bpred and enc.sf.trellis      # the host ladder's default
-    enc.sf = dataclasses.replace(TE.SLICE2_SF, **{feature: True})
-    with pytest.raises(NotImplementedError, match="9c"):
-        enc.encode_frame(*frames[0])
-    assert enc.frame_count == 0
 
 
 def test_default_device_needs_a_card(monkeypatch):

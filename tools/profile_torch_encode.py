@@ -6,22 +6,29 @@ Run from the repository root on a machine with a CUDA card:
     python3 tools/profile_torch_encode.py [--frames 4]
 
 Decodes the first frames of tests/vectors/bench_1080p.ivf with the port's
-decoder, then encodes them (1 key + the rest inter) with TorchEncoder
-under SLICE2_SF at qindex 24, once to warm up and once with timers. Every
-timed stage is bracketed by torch.cuda.synchronize(), so stage times are
-wall-clock seconds of host + device work and add up to the frame:
+decoder, then encodes them (1 key + the rest inter) with TorchEncoder at
+qindex 24, under each of two feature sets: the default speed features
+(B_PRED and trellis on) and SLICE2_SF (both off); per feature set once to
+warm up and once with timers. Every timed stage is bracketed by
+torch.cuda.synchronize(), so stage times are wall-clock seconds of host +
+device work and add up to the frame:
   * decision (the _decide_*_fn hooks: motion search + RD choice), and
-    inside it K3 (ops/me_sad.sad_grid, per launch);
-  * encode (the _encode_fn hook), split into the encode wavefront
-    (models/wavefront.encode_recon_planes) and the rest, which is MC;
+    inside it K3 (ops/me_sad.sad_grid, per launch) and the B_PRED
+    candidate (`_bpred_rd`);
+  * encode (the _encode_fn hook), split into the trellis on the inter MBs
+    (`_trellis_mbs`), the encode wavefront
+    (models/wavefront.encode_recon_planes), inside it the B_PRED lanes
+    (`_bpred_lanes`), and the rest, which is MC and the trellis's
+    transform;
   * loop filter + borders (the _lf_fn hook: K2);
   * host pack (Encoder._pack);
   * other: uploads, host grids, MV->mode mapping.
-Each frame's row also holds its number of intra MBs and of dependency
-levels the encode wavefront walked. Then a third encoder encodes the same
-frames again, the last one under torch.profiler, for the device's busy
-time and idle share on an inter frame. Prints the card (nvidia-smi name, power limit) and
-one JSON line. It imports nothing of JAX or of the JAX package.
+Each frame's row also holds its number of intra MBs, of B_PRED MBs and of
+dependency levels the encode wavefront walked. Then a third encoder of
+each feature set encodes the same frames again, the last one under
+torch.profiler, for the device's busy time and idle share on an inter
+frame. Prints the card (nvidia-smi name, power limit) and one JSON line.
+It imports nothing of JAX or of the JAX package.
 """
 import argparse
 import collections
@@ -45,6 +52,7 @@ def main():
     from libvpx_opencl_tpu_torch.models import torch_encoder as TE
     from libvpx_opencl_tpu_torch.models import wavefront as EW
     from libvpx_opencl_tpu_torch.ops import me_sad
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4)
@@ -59,6 +67,7 @@ def main():
               TD.decode_ivf_torch(stream, limit=args.frames, device="cuda")]
 
     stage = collections.Counter()       # seconds per stage, current frame
+    features = {"default": TE.SpeedFeatures(), "slice2": TE.SLICE2_SF}
 
     def timed(fn, key):
         def wrapper(*a, **k):
@@ -79,9 +88,9 @@ def main():
         _lf_fn = staticmethod(timed(TE._lf_device, "loop_filter"))
         _pack = timed(TE.TorchEncoder._pack, "host_pack")
 
-    def encode_all(cls, frames, per_frame=None):
+    def encode_all(cls, frames, sf, per_frame=None):
         enc = cls(1920, 1080, qindex=24, device="cuda")
-        enc.sf = TE.SLICE2_SF
+        enc.sf = sf
         for frame in frames:
             stage.clear()
             torch.cuda.synchronize()
@@ -91,66 +100,78 @@ def main():
             if per_frame is not None:
                 row = dict(stage, total=time.perf_counter() - t0,
                            bytes=len(payload), **shape.pop())
-                row["mc"] = row["encode"] - row["encode_wavefront"]
+                row["mc"] = row["encode"] - row["encode_wavefront"] - \
+                    row.get("trellis", 0.0)
                 row["other"] = row["total"] - sum(
                     row[k] for k in ("decision", "encode", "loop_filter",
                                      "host_pack"))
                 per_frame.append(row)
         return enc
 
-    encode_all(TE.TorchEncoder, frames)              # warm-up
-    ew_fn, k3_fn = EW.encode_recon_planes, me_sad.sad_grid
+    ew_fn = EW.encode_recon_planes
     ew_timed = timed(ew_fn, "encode_wavefront")
     shape = []
 
     def ew_probe(R, C, *a):
-        intra = a[8].cpu().numpy()       # after 3 sources, 3 predictions,
-        shape.append({                   # mode and uv_mode
-            "intra_mbs": int(intra.sum()),
-            "levels": int(EW.intra_levels(R, C, intra).max()) + 1})
+        # after 3 sources and 3 predictions: mode, uv_mode, intra
+        intra = a[8].cpu().numpy()
+        bpred = intra & (a[6].cpu().numpy() == W.B_PRED_M)
+        shape.append({
+            "intra_mbs": int(intra.sum()), "bpred_mbs": int(bpred.sum()),
+            "levels": int(EW.intra_levels(R, C, intra, bpred).max()) + 1})
         return ew_timed(R, C, *a)
 
-    EW.encode_recon_planes = ew_probe
-    me_sad.sad_grid = timed(k3_fn, "k3_sad_grid")
-    rows = []
-    try:
-        encode_all(TimedEncoder, frames, rows)
-    finally:
-        EW.encode_recon_planes, me_sad.sad_grid = ew_fn, k3_fn
-
-    from torch.profiler import ProfilerActivity, profile
-    enc = encode_all(TE.TorchEncoder, frames[:-1])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc.encode_frame(*frames[-1])
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    dev = collections.Counter()
-    calls = collections.Counter()
-    # kernel events only: an operator's row repeats its kernels' time
+    probes = [(EW, "encode_recon_planes", ew_probe),
+              (me_sad, "sad_grid", timed(me_sad.sad_grid, "k3_sad_grid")),
+              (TE, "_bpred_rd", timed(TE._bpred_rd, "bpred_decision")),
+              (EW, "_bpred_lanes", timed(EW._bpred_lanes, "bpred_lanes")),
+              (TE, "_trellis_mbs", timed(TE._trellis_mbs, "trellis"))]
     from torch.autograd import DeviceType
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if t > 0 and ev.device_type == DeviceType.CUDA:
-            dev[ev.key] += t / 1e3          # us -> ms
-            calls[ev.key] += ev.count
-    busy = sum(dev.values())
-    out = {
-        "card": card, "frames": len(frames),
-        "keyframe_s": rows[0],
-        "inter_frames_s": rows[1:],
-        "inter_fps": (len(rows) - 1) / sum(r["total"] for r in rows[1:]),
-        "profiled_inter_frame": {
-            "wall_s": prof_wall, "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
-            "kernel_launches": sum(calls.values()),
-            "device_ms_top": {
-                k[:90]: {"ms": v, "calls": calls[k]}
-                for k, v in dev.most_common(10)}},
-    }
+    from torch.profiler import ProfilerActivity, profile
+    out = {"card": card, "frames": len(frames)}
+    for name, sf in features.items():
+        encode_all(TE.TorchEncoder, frames, sf)              # warm-up
+        saved = [getattr(mod, attr) for mod, attr, _ in probes]
+        for mod, attr, fn in probes:
+            setattr(mod, attr, fn)
+        rows = []
+        try:
+            encode_all(TimedEncoder, frames, sf, rows)
+        finally:
+            for (mod, attr, _), fn in zip(probes, saved):
+                setattr(mod, attr, fn)
+
+        enc = encode_all(TE.TorchEncoder, frames[:-1], sf)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc.encode_frame(*frames[-1])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        dev = collections.Counter()
+        calls = collections.Counter()
+        # kernel events only: an operator's row repeats its kernels' time
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+            if t > 0 and ev.device_type == DeviceType.CUDA:
+                dev[ev.key] += t / 1e3          # us -> ms
+                calls[ev.key] += ev.count
+        busy = sum(dev.values())
+        out[name] = {
+            "keyframe_s": rows[0],
+            "inter_frames_s": rows[1:],
+            "inter_fps": (len(rows) - 1) / sum(r["total"] for r in rows[1:]),
+            "profiled_inter_frame": {
+                "wall_s": prof_wall, "device_busy_ms": busy,
+                "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
+                "kernel_launches": sum(calls.values()),
+                "device_ms_top": {
+                    k[:90]: {"ms": v, "calls": calls[k]}
+                    for k, v in dev.most_common(10)}},
+        }
+        print(json.dumps({name: out[name]}), flush=True)
     print(json.dumps(out), flush=True)
     return 0
 
