@@ -9,11 +9,14 @@ e.g. an H100) and nvcc:
 It builds the hand-written kernels from csrc/, holds each against its
 plain PyTorch version, decodes tests/vectors/bench_1080p.ivf (30 frames,
 1920x1080) through the port's entry point on the card with a per-frame
-MD5 gate, then six more conformance streams, encodes four of the decoded
-1080p frames (1 key + 3 inter) through TorchEncoder on the card with a
-closed-loop gate, under SLICE2_SF and then at the default speed features
-(B_PRED and trellis on), and times decode, encode and the kernels. Any
-failure raises (exit code != 0). It prints, in order:
+MD5 gate, then six more conformance streams, drives the user surface
+(decoder API, reference controls, error concealment, postproc, the
+tpuvpxdec CLI, ARNR and the analysis ops) against the host path, encodes
+four of the decoded 1080p frames (1 key + 3 inter) through TorchEncoder
+on the card with a closed-loop gate under SLICE2_SF, and the first three
+(1 key + 2 inter) at the default speed features (B_PRED and trellis on),
+and times decode, encode and the kernels. Any failure raises (exit code
+!= 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
   * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
@@ -28,6 +31,18 @@ failure raises (exit code != 0). It prints, in order:
     decoded frame's inputs, and around the wrapper inside the decoder)
     with its launches per frame, its chain of 2(R-1)+C dependent MB steps
     and the microseconds per step, beside the card's name and power limit;
+  * the user surface (`surface_phases`), each held against the port's
+    host path: the 1080p stream through the API's CodecDecoder on the
+    card (MD5 of every frame from get_frame(), K1 once per frame, K2 once
+    per filtered frame, get_reference("last") right after decode() equal
+    to the decoded frame; fps with every frame read back); a LAST
+    snapshot rolled back with set_reference on inter_cif and odd_65x49;
+    error concealment with input fragments on part4_cif (seed 3, 50%
+    loss); postproc on inter_cif (five flag sets) and on the first three
+    1080p frames with its seconds per frame; `python -m
+    libvpx_opencl_tpu_torch.cli.tpuvpxdec --md5 --summary` on the 1080p
+    stream as a subprocess (golden MD5s, its fps); ARNR over five 1080p
+    frames and the five analysis ops on a 1080p plane, with their times;
   * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1),
     at rng 7 and 1, on windows at every column mod 4, on plane 0 with
     source 255 (every SAD 65280) and at 68x120 on a decoded 1080p frame:
@@ -46,7 +61,8 @@ failure raises (exit code != 0). It prints, in order:
     equal to K3);
   * at the default speed features: the QCIF clip's payloads, and the
     packets of the port's CodecEncoder, equal on the card and the CPU;
-  * the 1080p encode at the default speed features with the same gates:
+  * the 1080p encode (1 key + 2 inter) at the default speed features with
+    the same gates:
     per frame its bytes beside the SLICE2_SF bytes, B_PRED MBs, inter MBs
     the trellis ran on, dependency levels walked and seconds; then a
     second encode of the same frames timing the B_PRED decision
@@ -69,6 +85,9 @@ GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (1, 1), (2, 1), (1, 2), (2, 2),
          (200, 3), (68, 120)]
 EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
                  "odd_65x49", "part4_cif", "seg_roi_qcif"]
+# 1080p frames of the default-feature encode (1 key + 2 inter: each inter
+# frame takes ~25 s on the H100, and the script stays in half its limit)
+DEFAULT_FRAMES = 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -108,6 +127,309 @@ def lf_case(np, rng, R, C):
 def max_abs_diff(torch, got, want):
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                for g, w in zip(got, want))
+
+
+def surface_phases(torch, np, card):
+    """The port's user surface on the card, after the decode phases:
+    CodecDecoder with MD5 gates and launch counts, the reference controls,
+    error concealment with input fragments, postproc, the tpuvpxdec CLI as
+    a subprocess, and ARNR with the five analysis ops, each held against
+    the port's host path. Returns the K1/K2 launches of the CodecDecoder
+    run (counts zeroed just before it, read just after)."""
+    from libvpx_opencl_tpu_torch import api
+    from libvpx_opencl_tpu_torch.models import arnr, me_host
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.ops import analysis_device as AD
+    from libvpx_opencl_tpu_torch.ops import metrics
+    from libvpx_opencl_tpu_torch.ops import postproc as PP
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
+    from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
+
+    def host(flags=()):
+        return api.CodecDecoder(flags=flags, use_device=False)
+
+    def card_dec(flags=()):
+        return api.CodecDecoder(flags=flags, device="cuda")
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            np.array_equal(x, y) for fa, fb in zip(a, b)
+            for x, y in zip(fa, fb))
+
+    def take(dec, out):
+        out.extend(tuple(np.array(p) for p in f) for f in dec.get_frame())
+
+    t_start = time.perf_counter()
+    path = os.path.join(VECTORS, "bench_1080p.ivf")
+    golden = load_golden_md5s(path + ".md5")
+    frames = read_ivf(path).frames
+
+    # 1. CodecDecoder: every frame from get_frame() MD5-checked; K1 once
+    # per frame, K2 once per filtered frame; and (2) get_reference("last")
+    # right after decode(), before get_frame(), is the frame just decoded
+    # whenever that frame refreshed LAST
+    for name in W.launches:
+        W.launches[name] = 0
+    dec = card_dec()
+    shown, per_frame, refs_checked = [], [], 0
+    for payload, _pts in frames:
+        before = dict(W.launches)
+        dec.decode(payload)
+        ref = dec.get_reference("last") \
+            if dec.get_last_ref_updates() & 1 else None
+        got = []
+        take(dec, got)
+        per_frame.append((
+            W.launches["intra_wavefront"] - before["intra_wavefront"],
+            W.launches["lf_wavefront"] - before["lf_wavefront"],
+            dec._dec.filter_level))
+        for planes in got:
+            if len(shown) >= len(golden) or \
+                    frame_md5(*planes) != golden[len(shown)]:
+                fail(f"CodecDecoder bench_1080p frame {len(shown)}: MD5 "
+                     f"mismatch")
+            shown.append(planes)
+        if ref is not None and got:
+            if not same([ref], got):
+                fail(f"CodecDecoder bench_1080p frame {len(shown) - 1}: "
+                     f"get_reference('last') right after decode is not "
+                     f"the decoded frame")
+            refs_checked += 1
+    api_launches = {k: W.launches[k]
+                    for k in ("intra_wavefront", "lf_wavefront")}
+    if len(shown) != len(golden):
+        fail(f"CodecDecoder bench_1080p: {len(shown)} frames, {len(golden)} "
+             f"expected")
+    for i, (k1, k2, level) in enumerate(per_frame):
+        if k1 != 1 or k2 != (1 if level else 0):
+            fail(f"CodecDecoder bench_1080p frame {i} (filter level {level}) "
+                 f"launched K1 {k1} and K2 {k2} times")
+    print(f"CodecDecoder bench_1080p: {len(shown)}/{len(golden)} frames from "
+          f"get_frame() MD5-exact; K1 launches {api_launches['intra_wavefront']}"
+          f", K2 launches {api_launches['lf_wavefront']} (one per frame / "
+          f"per filtered frame); get_reference('last') right after decode "
+          f"== the frame on {refs_checked} frames that refreshed LAST",
+          flush=True)
+
+    def codec_pass():
+        d = card_dec()
+        for payload, _pts in frames:
+            d.decode(payload)
+            for _ in d.get_frame():
+                pass
+        torch.cuda.synchronize()
+
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        codec_pass()
+        runs.append(time.perf_counter() - t0)
+    codec_fps = len(frames) / statistics.median(runs)
+    print(f"CodecDecoder bench_1080p: {codec_fps:.2f} fps with every frame "
+          f"read back by get_frame() (median of 3: "
+          f"{[round(r, 4) for r in runs]} s) [{card}]", flush=True)
+
+    # 2. reference controls: snapshot LAST, decode two frames, roll LAST
+    # back and decode on; card == the port's host class
+    def roll(dec, name):
+        fr = read_ivf(os.path.join(VECTORS, f"{name}.ivf")).frames
+        out = []
+        dec.decode(fr[0][0])
+        take(dec, out)
+        snap = dec.get_reference("last")
+        for payload, _pts in fr[1:3]:
+            dec.decode(payload)
+            take(dec, out)
+        dec.set_reference("last", snap)
+        out.append(dec.get_reference("last"))
+        for payload, _pts in fr[3:]:
+            dec.decode(payload)
+            take(dec, out)
+        return out
+
+    for name in ("inter_cif", "odd_65x49"):
+        got, want = roll(card_dec(), name), roll(host(), name)
+        if not same(got, want):
+            fail(f"{name}: set_reference roll-back on the card differs from "
+                 f"the host class")
+        print(f"{name}: snapshot, 2 frames, set_reference('last') roll-back, "
+              f"{len(got) - 4} more frames: card == host class", flush=True)
+
+    # 3. error concealment with input fragments: the loss pattern of
+    # examples/decode_with_partial_drops.py at seed 3, 50%
+    def partial_drops(dec):
+        rng = np.random.RandomState(3)
+        out = []
+        for payload, _pts in read_ivf(os.path.join(
+                VECTORS, "part4_cif.ivf")).frames:
+            cut = max(10, len(payload) // 2)
+            dec.decode(payload[:cut])
+            if not (payload[0] & 1) or rng.rand() * 100 >= 50:
+                dec.decode(payload[cut:])
+            dec.decode(None)
+            fr = []
+            take(dec, fr)
+            out.append(([frame_md5(*f) for f in fr],
+                        dec.get_frame_corrupted()))
+        return out
+
+    flags = (api.USE_INPUT_FRAGMENTS, api.USE_ERROR_CONCEALMENT)
+    got, want = partial_drops(card_dec(flags)), partial_drops(host(flags))
+    if got != want:
+        fail("part4_cif partial drops: card differs from the host class")
+    print(f"part4_cif with fragments, EC, 50% second-packet loss: card == "
+          f"host class ({sum(c for _, c in got)} of {len(got)} frames "
+          f"concealed)", flush=True)
+
+    # 4. postproc: card == host class on inter_cif; on the first 3 frames
+    # of the bench stream, card == ops/postproc applied to the MD5-checked
+    # frames with the decoder state of another TorchDecoder
+    inter = read_ivf(os.path.join(VECTORS, "inter_cif.ivf")).frames
+    for pp, noise in (({"deblock", "addnoise"}, 2), ({"deblock", "mfqe"}, 0),
+                      ({"debug_clr_blk_modes"}, 0),
+                      ({"debug_clr_frm_ref_blks"}, 0),
+                      ({"debug_draw_mv"}, 0)):
+        outs = []
+        for dec in (card_dec((api.USE_POSTPROC,)),
+                    host((api.USE_POSTPROC,))):
+            dec.set_postproc(api.PostProcCfg(flags=set(pp),
+                                             noise_level=noise))
+            out = []
+            for payload, _pts in inter:
+                dec.decode(payload)
+                take(dec, out)
+            outs.append(out)
+        if not same(*outs):
+            fail(f"postproc {sorted(pp)} on inter_cif: card differs from "
+                 f"the host class")
+        print(f"postproc {sorted(pp)} on inter_cif ({len(outs[0])} frames): "
+              f"card == host class", flush=True)
+    pp = {"deblock", "addnoise", "mfqe"}
+    dec = card_dec((api.USE_POSTPROC,))
+    dec.set_postproc(api.PostProcCfg(flags=pp, noise_level=2))
+    state = TD.TorchDecoder(device="cuda")
+    prev = qprev = None
+    pp_s = []
+    for k in range(3):
+        dec.decode(frames[k][0])
+        dec._dec._sync()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        take(dec, got)
+        pp_s.append(time.perf_counter() - t0)
+        state.decode_frame_core(frames[k][0])
+        y, u, v = PP.post_proc_frame(*shown[k], state.base_qindex, pp, 2)
+        if prev is not None and state.base_qindex - qprev >= 0:
+            y, u, v = PP.mfqe_frame((y, u, v), prev, state.base_qindex, qprev,
+                                    state.mode, state.mv,
+                                    keyframe=state.frame_type == 0)
+        prev, qprev = (y, u, v), state.base_qindex
+        want = PP.debug_overlay(y, u, v, pp, mode=state.mode,
+                                ref_frame=state.ref_frame, mvs=state.mv)
+        if not same(got, [want]):
+            fail(f"postproc {sorted(pp)} on bench_1080p frame {k}: card "
+                 f"differs from ops/postproc on the MD5-checked frame")
+    print(f"postproc {sorted(pp)} on bench_1080p frames 0-2: card == "
+          f"ops/postproc on the MD5-checked frames; get_frame() "
+          f"{[round(x, 4) for x in pp_s]} s per frame (host NumPy postproc "
+          f"and readback) [{card}]", flush=True)
+
+    # 5. the CLI twin as users run it
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "libvpx_opencl_tpu_torch.cli.tpuvpxdec",
+         path, "--md5", "--summary"], cwd=HERE, capture_output=True,
+        text=True, timeout=600, check=True)
+    wall = time.perf_counter() - t0
+    if [ln.split()[0] for ln in r.stdout.splitlines()] != golden:
+        fail("tpuvpxdec --md5 on bench_1080p differs from the golden file")
+    summary = r.stderr.strip().splitlines()[-1]
+    print(f"tpuvpxdec bench_1080p --md5 --summary: {len(golden)} MD5 lines == "
+          f"golden; '{summary}'; process wall {wall:.2f} s [{card}]",
+          flush=True)
+
+    # 6. ARNR and the five analysis ops on the card vs the host twins
+    five = shown[:5]
+    t0 = time.perf_counter()
+    alt_dev = arnr.synthesize_altref(five, 2, device="cuda")
+    arnr_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alt_dev = arnr.synthesize_altref(five, 2, device="cuda")
+    arnr_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alt_host = arnr.synthesize_altref(five, 2)
+    arnr_host = time.perf_counter() - t0
+    if not same([alt_dev], [alt_host]):
+        fail(f"synthesize_altref on the card differs from the host path")
+    print(f"ARNR synthesize_altref over bench_1080p frames 0-4 (centre 2): "
+          f"card == host on all three planes; card {arnr_dev:.4f} s (first call "
+          f"{arnr_first:.4f} s), host NumPy {arnr_host:.4f} s [{card}]",
+          flush=True)
+
+    def timed(fn, reps=5):
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps * 1e3
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    a16, b16 = arnr._pad16(shown[2][0]), arnr._pad16(shown[1][0])
+    ta, tb = up(a16), up(b16)
+    ms = {}
+    got, ms["fullpel_match_device"] = timed(
+        lambda: AD.fullpel_match_device(ta, tb, 7))
+    if not all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(
+            got, me_host.fullpel_match(a16, b16, 7))):
+        fail("fullpel_match_device on the card differs from "
+             "me_host.fullpel_match")
+    wgt = np.where(got[2].cpu().numpy() < arnr.THRESH_LOW, 2, 1) \
+        .astype(np.int32).repeat(16, 0).repeat(16, 1)
+    acc = np.zeros(a16.shape, np.int32)
+    cnt = np.zeros(a16.shape, np.int32)
+    arnr._weighted_accumulate(a16, b16, 6, wgt, acc, cnt)
+    z, tw = up(np.zeros(a16.shape, np.int32)), up(wgt)
+    (da, dc), ms["temporal_filter_apply_device"] = timed(
+        lambda: AD.temporal_filter_apply_device(ta, tb, 6, tw, z, z))
+    if not (np.array_equal(da.cpu().numpy(), acc) and
+            np.array_equal(dc.cpu().numpy(), cnt)):
+        fail("temporal_filter_apply_device on the card differs from "
+             "arnr._weighted_accumulate")
+    out, ms["temporal_filter_normalize_device"] = timed(
+        lambda: AD.temporal_filter_normalize_device(da, dc, ta))
+    cnt1 = np.maximum(cnt, 1)
+    if not np.array_equal(out.cpu().numpy(), np.where(
+            cnt > 0, (acc + (cnt1 >> 1)) // cnt1, a16).astype(np.uint8)):
+        fail("temporal_filter_normalize_device on the card differs from the "
+             "host normalize")
+    (sse, var), ms["variance_blocks_device"] = timed(
+        lambda: AD.variance_blocks_device(ta, tb))
+    d = (a16.astype(np.int64) - b16.astype(np.int64)).reshape(
+        a16.shape[0] // 16, 16, a16.shape[1] // 16, 16)
+    s, q = d.sum((1, 3)), (d * d).sum((1, 3))
+    if not (np.array_equal(sse.cpu().numpy(), q) and
+            np.array_equal(var.cpu().numpy(), q - ((s * s) >> 8))):
+        fail("variance_blocks_device on the card differs from the host sums")
+    ya, yb = up(shown[2][0]), up(shown[1][0])
+    ssim, ms["ssim_plane_device"] = timed(lambda: AD.ssim_plane_device(ya, yb))
+    ssim_host = metrics.ssim_plane(shown[2][0], shown[1][0])
+    if not abs(float(ssim) - ssim_host) < 1e-5:
+        fail(f"ssim_plane_device {float(ssim)} on the card vs "
+             f"metrics.ssim_plane {ssim_host}: |diff| >= 1e-5")
+    print(f"analysis ops on bench_1080p luma {a16.shape} (frames 2 vs 1) on "
+          f"the card == host twins (SSIM {float(ssim):.7f} vs {ssim_host:.7f}, "
+          f"|diff| {abs(float(ssim) - ssim_host):.2e} < 1e-5); ms per call "
+          f"(mean of 5, host clock to synchronize): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]",
+          flush=True)
+    print(f"surface phases: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return api_launches
 
 
 def main():
@@ -386,6 +708,11 @@ def main():
               f"alone {row:.4f} ms: {step_us:.3f} us per MB step, "
               f"{hand_us:.3f} us per hand-off between rows [{card}]",
               flush=True)
+
+    # -- the user surface: decoder API, reference controls, EC, postproc,
+    # the CLI, ARNR and the analysis ops -----------------------------------
+    for name, count in surface_phases(torch, np, card).items():
+        launches[name] += count
 
     # -- K3 vs plain ------------------------------------------------------
     def search_case(rng, R, C, plane=None, src=None):
@@ -684,7 +1011,7 @@ def main():
           f"bytes, B_PRED MBs {small['cuda'][2]}); CodecEncoder card "
           f"packets == CPU packets", flush=True)
 
-    # -- main path 3: 1 key + 3 inter 1080p frames at default features ---
+    # -- main path 3: 1 key + 2 inter 1080p frames at default features ---
     def default_encoder():
         return TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
 
@@ -700,7 +1027,7 @@ def main():
     enc = default_encoder()
     dec = TD.TorchDecoder(device="cuda")
     def_launches = {"sad_grid": 0, "lf_wavefront": 0}
-    for i, frame in enumerate(src_frames):
+    for i, frame in enumerate(src_frames[:DEFAULT_FRAMES]):
         want_k3 = refs_searched(enc) if i else 0
         before = dict(W.launches)
         torch.cuda.synchronize()
@@ -760,7 +1087,7 @@ def main():
         setattr(mod, attr, timed(fn, key))
     try:
         enc = default_encoder()
-        for frame in src_frames:
+        for frame in src_frames[:DEFAULT_FRAMES]:
             stages.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -6,14 +6,21 @@ the plain tensor code, hand-written CUDA kernels (csrc/) for what the JAX
 package wrote in Pallas for the TPU. It imports nothing of JAX or of the
 JAX package; the host modules it needs are its own copies.
 
-  utils/   — IVF container, MD5 conformance oracle, native entropy and
-             pack runtime
+  api.py   — the codec API: CodecDecoder (postproc, error concealment,
+             input fragments, reference controls) and CodecEncoder
+  cli/     — tpuvpxdec (decoder CLI on TorchDecoder) and tpuvpxenc
+             (encoder CLI on the host Encoder)
+  utils/   — IVF, WebM and Y4M containers, MD5 conformance oracle, native
+             entropy and pack runtime
   ops/     — tables, transforms and quantizers, prediction, loop-filter
              math, motion search, RD costing, the K1/K2 wavefront and K3
-             SAD-grid wrappers and their CUDA loader
+             SAD-grid wrappers and their CUDA loader; the encoder's
+             analysis ops (torch), display postproc and bicubic scaling
+             (NumPy)
   models/  — bool coder, RefDecoder host entropy layer, TorchDecoder; host
-             Encoder with its RD tables and bool encoder, the encode
-             wavefront, TorchEncoder
+             Encoder with its RD tables, rate control, two-pass, ARNR,
+             lookahead, temporal layers and multi-resolution simulcast,
+             the bool encoder, the encode wavefront, TorchEncoder
   csrc/    — CUDA kernels (built with nvcc on first use) and the host C++
              entropy and pack runtime (built with g++ on first use)
 

@@ -264,7 +264,8 @@ class TorchDecoder(RefDecoder):
 
     def _sync(self):
         """Join the dispatch worker (before any main-thread access to the
-        device reference ring: _alloc, concealment, load_reference_ring)."""
+        device reference ring: _alloc, concealment, load_reference{,_ring},
+        the API's get_reference)."""
         if self._pending is not None:
             try:
                 self._pending.result()
@@ -556,27 +557,46 @@ class TorchDecoder(RefDecoder):
 _plane_shapes = W.plane_shapes
 
 
-def load_reference_ring(dec, last, golden, altref):
-    """Install a reference ring in a TorchDecoder (the set_reference
-    control's counterpart). Each of last/golden/altref is a (y, u, v)
-    tuple of bordered numpy uint8 planes ([R*16+64, C*16+64] luma,
-    [R*8+32, C*8+32] chroma), e.g. another decoder's reference frames.
-    The decoder must already know the frame geometry (a keyframe was
-    decoded)."""
-    dec._sync()
+def _upload_frame(dec, planes):
+    """A DeviceFrame holding the decoder's own copy of bordered numpy
+    uint8 planes (y, u, v), validated against its geometry."""
     shapes = _plane_shapes(dec.mb_rows, dec.mb_cols)
-    frames = []
+    ts = []
     with dec._on_stream():
-        for planes in (last, golden, altref):
-            ts = []
-            for a, shape in zip(planes, shapes):
-                a = np.asarray(a)
-                if a.dtype != np.uint8 or a.shape != shape:
-                    raise ValueError(f"reference plane must be uint8 {shape},"
-                                     f" got {a.dtype} {a.shape}")
-                # own copy: the decoder never aliases the caller's array
-                ts.append(torch.from_numpy(np.array(a)).to(dec.device))
-            frames.append(DeviceFrame(*ts, dec.w, dec.h))
+        for a, shape in zip(planes, shapes):
+            a = np.asarray(a)
+            if a.dtype != np.uint8 or a.shape != shape:
+                raise ValueError(f"reference plane must be uint8 {shape},"
+                                 f" got {a.dtype} {a.shape}")
+            # own copy: the decoder never aliases the caller's array
+            ts.append(torch.from_numpy(np.array(a)).to(dec.device))
+        ready = None
+        if dec._stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(dec._stream)
+    return DeviceFrame(*ts, dec.w, dec.h, ready)
+
+
+def load_reference(dec, which, planes):
+    """Install one reference slot of a TorchDecoder (the set_reference
+    control): `which` is "last", "golden" or "altref", `planes` a (y, u, v)
+    tuple of bordered numpy uint8 planes ([R*16+64, C*16+64] luma,
+    [R*8+32, C*8+32] chroma). The other two slots stay on the device as
+    they are. Joins the dispatch worker first, so the ring it changes is
+    the one the last decoded frame left. The decoder must already know
+    the frame geometry (a keyframe was decoded)."""
+    if which not in ("last", "golden", "altref"):
+        raise KeyError(which)
+    dec._sync()
+    setattr(dec, which, _upload_frame(dec, planes))
+
+
+def load_reference_ring(dec, last, golden, altref):
+    """Install a whole reference ring in a TorchDecoder: each of
+    last/golden/altref as in `load_reference`, e.g. another decoder's
+    reference frames."""
+    dec._sync()
+    frames = [_upload_frame(dec, p) for p in (last, golden, altref)]
     dec.last, dec.golden, dec.altref = frames
 
 
