@@ -15,8 +15,10 @@ tpuvpxdec CLI, ARNR and the analysis ops) against the host path, encodes
 four of the decoded 1080p frames (1 key + 3 inter) through TorchEncoder
 on the card with a closed-loop gate under SLICE2_SF, and the first three
 (1 key + 2 inter) at the default speed features (B_PRED and trellis on),
-and times decode, encode and the kernels. Any failure raises (exit code
-!= 0). It prints, in order:
+drives the multi-GPU drivers (sharded decode and encode, GOP-parallel
+decode and encode, the batch transcoder) on virtual row shards of the
+card, and times decode, encode and the kernels. Any failure raises (exit
+code != 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
   * K1 (intra wavefront) and K2 (loop-filter wavefront) vs their plain
@@ -43,6 +45,8 @@ and times decode, encode and the kernels. Any failure raises (exit code
     libvpx_opencl_tpu_torch.cli.tpuvpxdec --md5 --summary` on the 1080p
     stream as a subprocess (golden MD5s, its fps); ARNR over five 1080p
     frames and the five analysis ops on a 1080p plane, with their times;
+    one altref encode through TorchEncoder on the card (ARNR handed the
+    card), its payloads equal to those with ARNR on the host;
   * K3 (SAD grid) vs its plain version at N = 48, at (3,3), (1,5), (5,1),
     at rng 7 and 1, on windows at every column mod 4, on plane 0 with
     source 255 (every SAD 65280) and at 68x120 on a decoded 1080p frame:
@@ -65,9 +69,21 @@ and times decode, encode and the kernels. Any failure raises (exit code
     the same gates:
     per frame its bytes beside the SLICE2_SF bytes, B_PRED MBs, inter MBs
     the trellis ran on, dependency levels walked and seconds; then a
-    second encode of the same frames timing the B_PRED decision
+    second encode of the first two frames timing the B_PRED decision
     candidate, the encode wavefront, its B_PRED lanes and the trellis,
     each synchronised;
+  * the multi-GPU drivers on virtual row shards of the one card
+    (`multi_shard_phases`): K1 and K2 with top_interior vs their plain
+    versions at 17 x 120 and 3 x 5 (exact); ShardedTorchDecoder on the
+    1080p stream at 2 and 4 shards with the shard-to-card map, MD5 of
+    every frame and K1 once per shard per frame, and decode fps at 1, 2
+    and 4 shards beside TorchDecoder (in turns, median of 3);
+    decode_streams with 2 groups x 2 shards on inter_cif and part4_cif;
+    ShardedTorchEncoder at 4 shards under SLICE2_SF, its payloads equal to
+    the SLICE2_SF phase's, K3 once per reference per shard; encode_gops
+    at 1080p, 2 groups x 2 frames, equal to a sequential encode with the
+    same keyframes; the BatchTranscoder on two QCIF jobs with resume,
+    equal to a sequential transcode;
   * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -86,8 +102,11 @@ GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (1, 1), (2, 1), (1, 2), (2, 2),
 EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
                  "odd_65x49", "part4_cif", "seg_roi_qcif"]
 # 1080p frames of the default-feature encode (1 key + 2 inter: each inter
-# frame takes ~25 s on the H100, and the script stays in half its limit)
+# frame takes ~25 s on the H100, and the script stays in half its limit),
+# and of its timed split (1 key + 1 inter, to make room for the
+# multi-shard phases)
 DEFAULT_FRAMES = 3
+SPLIT_FRAMES = 2
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -368,6 +387,38 @@ def surface_phases(torch, np, card):
           f"{arnr_first:.4f} s), host NumPy {arnr_host:.4f} s [{card}]",
           flush=True)
 
+    # 6b. one altref encode through TorchEncoder on the card: ARNR runs
+    # where the encoder runs, and the payloads equal those of the same
+    # encode with ARNR on the host NumPy path
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    clip = [tuple(np.ascontiguousarray(p[:h, :w]) for p, h, w in zip(
+        f, (144, 72, 72), (176, 88, 88))) for f in shown[:6]]
+    real, seen = arnr.synthesize_altref, []
+
+    def altref_encode(host_arnr):
+        def spy(*a, device=False, **kw):
+            seen.append(device)
+            return real(*a, device=False if host_arnr else device, **kw)
+        arnr.synthesize_altref = spy
+        try:
+            return arnr.encode_sequence_altref(
+                TE.TorchEncoder(176, 144, qindex=40, device="cuda"), None,
+                clip, gf_interval=4, max_frames=3)
+        finally:
+            arnr.synthesize_altref = real
+
+    t0 = time.perf_counter()
+    on_card = altref_encode(False)
+    altref_s = time.perf_counter() - t0
+    on_host = altref_encode(True)
+    if on_card != on_host or seen[0] != torch.device("cuda"):
+        fail(f"altref encode: ARNR given {seen[0]}; payloads with ARNR on "
+             f"the card differ from those with ARNR on the host")
+    print(f"altref encode (QCIF crops of bench_1080p frames 0-5, one "
+          f"ARF): ARNR handed {seen[0]}, payloads == ARNR on the host "
+          f"({[len(p) for p in on_card]} bytes, {altref_s:.3f} s) [{card}]",
+          flush=True)
+
     def timed(fn, reps=5):
         out = fn()
         torch.cuda.synchronize()
@@ -430,6 +481,241 @@ def surface_phases(torch, np, card):
           flush=True)
     print(f"surface phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     return api_launches
+
+
+def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
+    """The multi-GPU drivers on the one card, with virtual row shards
+    (parallel/mesh.py puts shard i on card i % cards): K1/K2 with
+    top_interior vs plain at a shard geometry; ShardedTorchDecoder on
+    bench_1080p at 2 and 4 shards (MD5 of every frame, one K1 launch per
+    shard per frame, fps beside 1 shard); decode_streams with 2 groups x
+    2 shards; ShardedTorchEncoder at 4 shards under SLICE2_SF (payloads
+    == the single-card SLICE2_SF phase's); encode_gops at 1080p, 2 groups
+    x 2 frames (== a sequential encode with the same keyframes); the
+    BatchTranscoder on two QCIF jobs with resume. Every count is zeroed
+    just before a path and read just after; returns the summed launches.
+    Updates err with the top_interior checks."""
+    import tempfile
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    from libvpx_opencl_tpu_torch.parallel import mesh as M
+    from libvpx_opencl_tpu_torch.parallel.batch import BatchTranscoder
+    from libvpx_opencl_tpu_torch.parallel.gop import (decode_streams,
+                                                      encode_gops)
+    from libvpx_opencl_tpu_torch.parallel.sharded_decode import \
+        ShardedTorchDecoder
+    from libvpx_opencl_tpu_torch.parallel.sharded_encode import \
+        ShardedTorchEncoder
+    from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
+    from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    total = {name: 0 for name in W.launches}
+
+    def zero():
+        for name in W.launches:
+            W.launches[name] = 0
+
+    def add():
+        for name, count in W.launches.items():
+            total[name] += count
+        return dict(W.launches)
+
+    # 1. K1 and K2 with top_interior vs their plain versions, at a shard
+    # of a 1080p frame (17 of its 68 MB rows) and a small one, with a top
+    # border of random pixels
+    for R, C in ((17, 120), (3, 5)):
+        rng = np.random.default_rng(R * 1000 + C + 7)
+        icase = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in intra_case(np, rng, R, C)]
+        lcase = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in lf_case(np, rng, R, C)]
+        planes = W.blocks_to_planes(R, C, *icase[:3])
+        for pl, b in zip(planes, (32, 16, 16)):
+            pl[:b] = torch.from_numpy(rng.integers(
+                0, 256, (b, pl.shape[1])).astype(np.uint8)).to(dev)
+        resid = [x.to(torch.int32).contiguous() for x in icase[3:6]]
+        ip = W.pack_intra_params(*icase[6:])
+        lp = W.pack_lf_params(*lcase[3:])
+        for simple in (False, True):
+            got = [p.clone() for p in planes]
+            want = [p.clone() for p in planes]
+            W.intra_recon_planes(R, C, *got, *resid, ip, top_interior=True)
+            W._intra_planes_plain(R, C, *want, *resid, ip,
+                                  top_interior=True)
+            d1 = max_abs_diff(torch, got, want)
+            W.loop_filter_planes(R, C, simple, *got, lp, top_interior=True)
+            W._lf_planes_plain(R, C, simple, *want, lp, top_interior=True)
+            d2 = max_abs_diff(torch, got, want)
+            print(f"K1, K2 (simple={simple}) with top_interior vs plain "
+                  f"{R}x{C}: max_abs_diff {d1}, {d2}", flush=True)
+            err["intra_wavefront"] = max(err["intra_wavefront"], d1)
+            err["lf_wavefront"] = max(err["lf_wavefront"], d2)
+            if d1 or d2:
+                fail(f"K1/K2 with top_interior disagree with plain at "
+                     f"{R}x{C}")
+
+    # 2. ShardedTorchDecoder on bench_1080p at 2 and 4 shards
+    bench = os.path.join(VECTORS, "bench_1080p.ivf")
+    golden = load_golden_md5s(bench + ".md5")
+    frames = read_ivf(bench).frames
+    for n in (2, 4):
+        mesh = M.make_row_mesh(n)
+        print(f"ShardedTorchDecoder {n} shards: {M.shard_map_line(mesh)}",
+              flush=True)
+        zero()
+        dec = ShardedTorchDecoder(mesh=mesh)
+        shown, per_frame = [], []
+        for payload, _pts in frames:
+            before = dict(W.launches)
+            show, planes = dec.decode_frame(payload)
+            per_frame.append((
+                W.launches["intra_wavefront"] - before["intra_wavefront"],
+                W.launches["lf_wavefront"] - before["lf_wavefront"],
+                dec.filter_level))
+            if show:
+                if len(shown) >= len(golden) or \
+                        frame_md5(*planes) != golden[len(shown)]:
+                    fail(f"ShardedTorchDecoder {n} shards: bench_1080p "
+                         f"frame {len(shown)} MD5 mismatch")
+                shown.append(1)
+        got = add()
+        rows = [r1 - r0 for r0, r1 in dec.rows]
+        if len(shown) != len(golden):
+            fail(f"ShardedTorchDecoder {n} shards: {len(shown)} frames")
+        for i, (k1, k2, level) in enumerate(per_frame):
+            if k1 != len(rows) or k2 != (len(rows) if level else 0):
+                fail(f"ShardedTorchDecoder {n} shards frame {i}: K1 {k1}, "
+                     f"K2 {k2} launches for {len(rows)} shards")
+        print(f"ShardedTorchDecoder {n} shards (MB rows {rows}): "
+              f"{len(shown)}/{len(golden)} bench_1080p frames MD5-exact; "
+              f"K1 launches {got['intra_wavefront']}, K2 launches "
+              f"{got['lf_wavefront']} (one per shard per frame)", flush=True)
+
+    def decode_all(n):
+        dec = ShardedTorchDecoder(mesh=M.make_row_mesh(n)) if n else \
+            TD.TorchDecoder(device="cuda")
+        for payload, _pts in frames:
+            dec.decode_frame_core(payload)
+        dec._sync()
+        torch.cuda.synchronize()
+
+    fps = {}
+    for n in (0, 1, 2, 4):
+        decode_all(n)
+    for rep in range(3):
+        for n in (0, 1, 2, 4):
+            t0 = time.perf_counter()
+            decode_all(n)
+            fps.setdefault(n, []).append(time.perf_counter() - t0)
+    for n, runs in fps.items():
+        print(f"decode bench_1080p "
+              f"{'TorchDecoder' if not n else f'ShardedTorchDecoder {n} shards'}"
+              f": {len(frames) / statistics.median(runs):.2f} fps (median of "
+              f"3 turns: {[round(r, 4) for r in runs]} s) [{card}]",
+              flush=True)
+
+    # 3. decode_streams: 2 gop groups x 2 row shards, two streams
+    names = ["inter_cif", "part4_cif"]
+    streams = [[p for p, _ in read_ivf(os.path.join(
+        VECTORS, f"{name}.ivf")).frames] for name in names]
+    mesh = M.make_mesh(4, gop=2)
+    zero()
+    results = decode_streams(streams, n_devices=4, gop=2)
+    got = add()
+    for name, out in zip(names, results):
+        gold = load_golden_md5s(os.path.join(VECTORS, f"{name}.ivf.md5"))
+        if [frame_md5(*f) for f in out] != gold:
+            fail(f"decode_streams: {name} MD5 mismatch")
+    print(f"decode_streams {names}, 2 gop groups x 2 row shards "
+          f"({M.shard_map_line(mesh)}): MD5-exact; K1 launches "
+          f"{got['intra_wavefront']}", flush=True)
+
+    # 4. ShardedTorchEncoder, 4 shards, SLICE2_SF, the SLICE2_SF frames
+    zero()
+    enc = ShardedTorchEncoder(1920, 1080, qindex=24, n_devices=4)
+    enc.sf = TE.SLICE2_SF
+    secs, k3, want_k3 = [], [], []
+    for i, frame in enumerate(src_frames):
+        refs = 1 + (enc.ref_gold is not enc.ref_last) + (
+            enc.ref_alt is not enc.ref_last and enc.ref_alt is not enc.ref_gold)
+        want_k3.append(refs * len(enc.rows) if i else 0)
+        before = W.launches["sad_grid"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = enc.encode_frame(*frame)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        k3.append(W.launches["sad_grid"] - before)
+        if payload != slice2_payloads[i]:
+            fail(f"ShardedTorchEncoder 4 shards frame {i}: payload differs "
+                 f"from the single-card SLICE2_SF encode")
+    got = add()
+    if k3 != want_k3 or \
+            got["lf_wavefront"] != len(enc.rows) * len(src_frames):
+        fail(f"ShardedTorchEncoder: K3 launches per frame {k3}, K2 "
+             f"{got['lf_wavefront']}")
+    print(f"ShardedTorchEncoder 4 shards (MB rows "
+          f"{[r1 - r0 for r0, r1 in enc.rows]}) under SLICE2_SF: "
+          f"{len(src_frames)} 1080p payloads == the single-card encode's; "
+          f"K3 launches per frame {k3} (one per reference per shard), K2 "
+          f"launches {got['lf_wavefront']}; seconds per frame "
+          f"{[round(x, 3) for x in secs]} [{card}]", flush=True)
+
+    # 5. encode_gops at 1080p: 2 groups x 2 frames vs sequential
+    zero()
+    t0 = time.perf_counter()
+    par = encode_gops(src_frames, 1920, 1080, 2, qindex=24, sf=TE.SLICE2_SF)
+    torch.cuda.synchronize()
+    gop_s = time.perf_counter() - t0
+    got = add()
+    seq_enc = TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
+    seq_enc.sf = TE.SLICE2_SF
+    t0 = time.perf_counter()
+    seq = [seq_enc.encode_frame(*f, keyframe=(i % 2 == 0))
+           for i, f in enumerate(src_frames)]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    if par != seq:
+        fail("encode_gops at 1080p differs from the sequential encode with "
+             "the same keyframes")
+    print(f"encode_gops 1080p, 2 groups x 2 frames under SLICE2_SF: == "
+          f"sequential ({[len(p) for p in par]} bytes); {gop_s:.3f} s on 2 "
+          f"threads vs {seq_s:.3f} s sequential; K3 launches "
+          f"{got['sad_grid']} [{card}]", flush=True)
+
+    # 6. BatchTranscoder on the card: two QCIF jobs, then resume
+    jobs = [os.path.join(VECTORS, f"{n}.ivf") for n in ("kf_qcif",
+                                                         "lowrate_qcif")]
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        zero()
+        state = BatchTranscoder(jobs, tmp, qindex=40).run()
+        add()
+        before = json.dumps(state, sort_keys=True)
+        again = BatchTranscoder(jobs, tmp, qindex=40).run()
+        if json.dumps(again, sort_keys=True) != before:
+            fail("BatchTranscoder resume changed the checkpoint")
+        for job in jobs:
+            src = read_ivf(job)
+            dec = TD.TorchDecoder(device="cuda")
+            enc = TE.TorchEncoder(src.width, src.height, qindex=40,
+                                  device="cuda")
+            want = [enc.encode_frame(*dec.frame_to_show.visible())
+                    for payload, _pts in src.frames
+                    if dec.decode_frame_core(payload)]
+            out = read_ivf(os.path.join(tmp, os.path.basename(job)))
+            if [p for p, _ in out.frames] != want:
+                fail(f"BatchTranscoder {os.path.basename(job)} differs from "
+                     f"a sequential TorchDecoder + TorchEncoder transcode")
+    print(f"BatchTranscoder on the card, 2 QCIF jobs: == sequential "
+          f"transcode; resume leaves the checkpoint as it was "
+          f"(frames per job: "
+          f"{[v['frames'] for v in state['stats'].values()]})", flush=True)
+    print(f"multi-shard phases: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return total
 
 
 def main():
@@ -837,12 +1123,13 @@ def main():
     enc = new_encoder()
     dec = TD.TorchDecoder(device="cuda")
     enc_launches = {"sad_grid": 0, "lf_wavefront": 0}
-    slice2_bytes = []
+    slice2_bytes, slice2_payloads = [], []
     for i, frame in enumerate(src_frames):
         want_k3 = refs_searched(enc) if i else 0
         before = dict(W.launches)
         payload = enc.encode_frame(*frame)
         slice2_bytes.append(len(payload))
+        slice2_payloads.append(payload)
         k3 = W.launches["sad_grid"] - before["sad_grid"]
         k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
         enc_launches["sad_grid"] += k3
@@ -1087,7 +1374,7 @@ def main():
         setattr(mod, attr, timed(fn, key))
     try:
         enc = default_encoder()
-        for frame in src_frames[:DEFAULT_FRAMES]:
+        for frame in src_frames[:SPLIT_FRAMES]:
             stages.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1102,6 +1389,12 @@ def main():
             f"{k} {row.get(k, 0.0):.4f} s" for k in (
                 "total", "bpred_decision", "encode_wavefront", "bpred_lanes",
                 "trellis")) + f" [{card}]", flush=True)
+
+    # -- multi-GPU: sharded decode and encode, GOP-parallel decode and
+    # encode, the batch transcoder, on virtual shards of the one card ----
+    for name, count in multi_shard_phases(torch, np, card, src_frames,
+                                          slice2_payloads, err).items():
+        launches[name] += count
 
     kernels = []
     for key, name, src, replaces, bs in (

@@ -21,6 +21,9 @@ JAX package; the host modules it needs are its own copies.
              Encoder with its RD tables, rate control, two-pass, ARNR,
              lookahead, temporal layers and multi-resolution simulcast,
              the bool encoder, the encode wavefront, TorchEncoder
+  parallel/ — multi-GPU: meshes of shards (shard i on card i % cards),
+             the MB-row-sharded decoder and encoder, GOP-parallel decode
+             and encode, the checkpointed batch transcoder
   csrc/    — CUDA kernels (built with nvcc on first use) and the host C++
              entropy and pack runtime (built with g++ on first use)
 

@@ -15,6 +15,11 @@
 //     and 129 on MB column 0; above-right 127 on MB row 0 and the above
 //     row's pixel 15 in the last MB column; sub-block rows 1-3 of the right
 //     sub-block column reuse the row-0 above-right pixels.
+//   * `top_interior`: MB row 0 is an interior row of a taller frame (a row
+//     shard below the first). It then reads its above row, above-right and
+//     top-left pixels from the plane's top border, which the caller has
+//     filled with the last unfiltered pixel row of the rows above, and
+//     takes no frame-edge value there.
 //
 // Dependencies. MB (r,c) reads the row above (MB (r-1,c)), the column to the
 // left ((r,c-1)), the top-left pixel ((r-1,c-1)) and, for B_PRED, four
@@ -151,7 +156,8 @@ __device__ __forceinline__ MbInputs load_inputs(
 __device__ __forceinline__ void intra_mb(uint8_t* y, int ys, uint8_t* u,
                                          uint8_t* v, int cs,
                                          const MbInputs& in, int C, int r,
-                                         int c, const int* sync, int& seen) {
+                                         int c, bool top, const int* sync,
+                                         int& seen) {
   const int t = threadIdx.x;
   __shared__ int p[20];
   __shared__ int above[16], left[16], ar[4], tl;
@@ -162,12 +168,13 @@ __device__ __forceinline__ void intra_mb(uint8_t* y, int ys, uint8_t* u,
   rowlag::bar_sync(1, kWorkers);
   const int mode = p[0];
   const int uv_mode = p[1];
-  const bool up = r > 0, lf = c > 0;
+  const bool up = r > 0 || top, lf = c > 0;
   uint8_t* Y = y + (int64_t)(r * 16) * ys + c * 16;
 
   // the left column is this block's own earlier work; the rest is row
-  // r-1's, so all of it is loaded in one batch after the wait
-  if (up)
+  // r-1's (or the top border's), so all of it is loaded in one batch
+  // after the wait
+  if (r > 0)
     rowlag::wait_above(sync, r, c + 2 < C ? c + 2 : C, seen, kWorkers);
   if (t < 16) {
     above[t] = up ? Y[-ys + t] : 127;
@@ -248,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int32_t* __restrict__ ru,
                         const int32_t* __restrict__ rv,
                         const int32_t* __restrict__ params, int pstride,
-                        int R, int C, int* sync) {
+                        int R, int C, int top, int* sync) {
   __shared__ unsigned mask[kMaxCols / 32];
   __shared__ int slot;  // progress handed to the publisher warp
   const int t = threadIdx.x;
@@ -276,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
       const MbInputs cur = next;
       const int nc = next_intra(mask, c + 1, C);
       if (nc < C) next = load_inputs(ry, ru, rv, params, pstride, r * C + nc);
-      intra_mb(y, ys, u, v, cs, cur, C, r, c, sync, seen);
+      intra_mb(y, ys, u, v, cs, cur, C, r, c, top != 0, sync, seen);
       // MB c is done, and the inter MBs up to nc
       rowlag::hand_over(&slot, nc, pending, kWorkers);
       c = nc;
@@ -289,19 +296,20 @@ __global__ void __launch_bounds__(kThreads)
 
 // y/u/v point at pixel (0,0) of the MB grid inside bordered planes (row
 // strides ys / cs bytes); residuals are [R*C,16,16] / [R*C,8,8] int32;
-// params is [R*C, >=20] int32 with row stride pstride; sync is R+1 int32
-// zeros. One launch on `stream`; returns cudaGetLastError().
+// params is [R*C, >=20] int32 with row stride pstride; top_interior != 0
+// takes row 0's above pixels from the top border (see above); sync is R+1
+// int32 zeros. One launch on `stream`; returns cudaGetLastError().
 extern "C" int intra_wavefront(void* y, int ys, void* u, void* v, int cs,
                                const void* ry, const void* ru, const void* rv,
                                const void* params, int pstride, int R, int C,
-                               void* sync, void* stream) {
+                               int top_interior, void* sync, void* stream) {
   const int grid = R < kMaxBlocks ? R : kMaxBlocks;
   intra_rowlag_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(y), ys, static_cast<uint8_t*>(u),
       static_cast<uint8_t*>(v), cs, static_cast<const int32_t*>(ry),
       static_cast<const int32_t*>(ru), static_cast<const int32_t*>(rv),
-      static_cast<const int32_t*>(params), pstride, R, C,
+      static_cast<const int32_t*>(params), pstride, R, C, top_interior,
       static_cast<int*>(sync));
   return static_cast<int>(cudaGetLastError());
 }

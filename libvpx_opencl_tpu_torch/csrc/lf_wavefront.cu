@@ -12,7 +12,11 @@
 // on the inner horizontal edges. Luma MBs are 16 px, chroma 8 px (inner
 // edge 4 only). The simple filter does luma only, p0/q0 only. The result
 // equals raster-order filtering, so the TPU kernel's deferred edit strips
-// and compose step have no counterpart here.
+// and compose step have no counterpart here. With `top_interior` MB row 0
+// is an interior row of a taller frame (a row shard below the first): its
+// top MB edge is filtered too, against the 4 pixel rows of the plane's top
+// border, which the caller has filled with the filtered last rows above and
+// into which the filter writes (at most 3 rows change).
 //
 // Dependencies. MB (r,c) reads and writes rows y0-4..y0+15 and columns
 // x0-4..x0+15 of its plane (x0, y0: its top-left pixel). The edits it must
@@ -235,8 +239,8 @@ __device__ __forceinline__ void load_inputs(
 template <bool kSimple>
 __device__ __forceinline__ void lf_mb(const Bases& b, const Slot* own,
                                       const Slot* halo, const MbInputs& in,
-                                      int C, int r, int c, const int* sync,
-                                      int& seen) {
+                                      int C, int r, int c, bool top,
+                                      const int* sync, int& seen) {
   __shared__ uint8_t patch[kPatch];
   if (in.p[0] == 0) return;  // filter level 0: the same in every thread
   const int mblim = in.p[1], blim = in.p[2], lim = in.p[3], hev = in.p[4];
@@ -267,16 +271,16 @@ __device__ __forceinline__ void lf_mb(const Bases& b, const Slot* own,
     filter_line<kLY>(patch + (4 + lane) * kLY, 1, c > 0, noskip, kSimple,
                      mblim, blim, lim, hev);
     __syncwarp(0xffff);
-    filter_line<kLY>(patch + 4 + lane, kLY, r > 0, noskip, kSimple, mblim,
-                     blim, lim, hev);
+    filter_line<kLY>(patch + 4 + lane, kLY, r > 0 || top, noskip, kSimple,
+                     mblim, blim, lim, hev);
   } else if (t >= 32 && t < 48 && !kSimple) {
     uint8_t* P = patch + kLY * kLY + (lane >> 3) * kLC * kLC;
     const int k = lane & 7;
     filter_line<kLC>(P + (4 + k) * kLC, 1, c > 0, noskip, false, mblim,
                      blim, lim, hev);
     __syncwarp(0xffff);
-    filter_line<kLC>(P + 4 + k, kLC, r > 0, noskip, false, mblim, blim, lim,
-                     hev);
+    filter_line<kLC>(P + 4 + k, kLC, r > 0 || top, noskip, false, mblim,
+                     blim, lim, hev);
   }
   rowlag::bar_sync(1, kWorkers);
 
@@ -293,7 +297,7 @@ template <bool kSimple>
 __global__ void __launch_bounds__(kThreads)
     lf_rowlag_kernel(uint8_t* y, int ys, uint8_t* u, uint8_t* v, int cs,
                      const int32_t* __restrict__ params, int pstride, int R,
-                     int C, int* sync) {
+                     int C, int top, int* sync) {
   __shared__ int slot;  // progress handed to the publisher warp
   Slot own[kOwnPer], halo[kHaloPer];
 #pragma unroll
@@ -326,7 +330,8 @@ __global__ void __launch_bounds__(kThreads)
       if (c + 1 < C)
         load_inputs(bases(r, c + 1), own, prow + (int64_t)(c + 1) * pstride,
                     next);
-      lf_mb<kSimple>(bases(r, c), own, halo, cur, C, r, c, sync, seen);
+      lf_mb<kSimple>(bases(r, c), own, halo, cur, C, r, c, top != 0, sync,
+                     seen);
       rowlag::hand_over(&slot, c + 1, pending, kWorkers);
     }
     rowlag::drain(pending, kWorkers);
@@ -337,16 +342,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // y/u/v point at pixel (0,0) of the MB grid inside bordered planes (row
 // strides ys / cs bytes, border >= 4); params is [R*C, >=6] int32 with row
-// stride pstride; sync is R+1 int32 zeros. One launch on `stream`; returns
-// cudaGetLastError().
+// stride pstride; top_interior != 0 filters row 0's top MB edge against
+// the top border (see above); sync is R+1 int32 zeros. One launch on
+// `stream`; returns cudaGetLastError().
 extern "C" int lf_wavefront(void* y, int ys, void* u, void* v, int cs,
                             const void* params, int pstride, int R, int C,
-                            int simple, void* sync, void* stream) {
+                            int simple, int top_interior, void* sync,
+                            void* stream) {
   const int grid = R < kMaxBlocks ? R : kMaxBlocks;
   auto kernel = simple ? lf_rowlag_kernel<true> : lf_rowlag_kernel<false>;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(y), ys, static_cast<uint8_t*>(u),
       static_cast<uint8_t*>(v), cs, static_cast<const int32_t*>(params),
-      pstride, R, C, static_cast<int*>(sync));
+      pstride, R, C, top_interior, static_cast<int*>(sync));
   return static_cast<int>(cudaGetLastError());
 }

@@ -169,6 +169,14 @@ def synthesize_altref(frames, alt_index, strength=6, max_frames=5,
     return tuple(norm(a, c, b) for a, c, b in zip(acc, cnt, cur))
 
 
+def _arnr_device(enc):
+    """synthesize_altref's `device` for an altref encode with `enc`: the
+    TorchEncoder's own device, so that ARNR runs where the encoder does;
+    False (the NumPy path) for the host Encoder, as in the reference."""
+    from .torch_encoder import TorchEncoder
+    return enc.device if isinstance(enc, TorchEncoder) else False
+
+
 def encode_stream_altref(enc, rc, frames_iter, lag=16, gf_interval=8,
                          max_frames=5, strength=6):
     """Streaming --auto-alt-ref encode: raw frames flow through a
@@ -200,7 +208,8 @@ def encode_stream_altref(enc, rc, frames_iter, lag=16, gf_interval=8,
             window = [la.peek(j)[:3] for j in range(la.depth())]
             ay, au, av = synthesize_altref(window, center,
                                            strength=strength,
-                                           max_frames=max_frames)
+                                           max_frames=max_frames,
+                                           device=_arnr_device(enc))
             saved_q = enc.qindex
             if rc is not None:
                 target = rc.frame_target(False, golden=True) * 3
@@ -242,7 +251,8 @@ def encode_twopass_altref(enc, tp, frames, strength=6, max_frames=5):
                 center > i + 1):
             ay, au, av = synthesize_altref(frames, center,
                                            strength=strength,
-                                           max_frames=max_frames)
+                                           max_frames=max_frames,
+                                           device=_arnr_device(enc))
             gb = min(tp.gf_boosts.get(i, 12.0), 48.0)
             target = tp.frame_target(False) * (1.0 + gb / 8.0)
             q = tp.rc.regulate_q(target, False, golden=True)
@@ -279,7 +289,8 @@ def encode_sequence_altref(enc, rc, frames, gf_interval=8, max_frames=5,
             center = min(i + gf_interval, n - 1)
             ay, au, av = synthesize_altref(frames, center,
                                            strength=strength,
-                                           max_frames=max_frames)
+                                           max_frames=max_frames,
+                                           device=_arnr_device(enc))
             # the ARF is a long-lived reference: encode it at a boosted
             # (lower) quantizer so prediction from it is high-fidelity
             # (the gfu_boost role, calc_gf_params ratectrl.c:448; without

@@ -55,20 +55,33 @@ def _extend_borders(plane, pad, aw, ah):
     return plane
 
 
-def _predict_inter(R, C, refs, mb, taps, split):
+def _predict_inter(C, refs, mb, taps, split, row0=0, origin=None):
     """MC for every inter MB: [K,16,16] / [K,8,8] int32 predictions of the
-    inter MBs `mb["inter_idx"]`, SPLITMV MBs per 4x4 tile."""
+    inter MBs `mb["inter_idx"]`, SPLITMV MBs per 4x4 tile.
+
+    A row shard passes row0, the frame MB row of its table's row 0, and,
+    where `refs` hold only padded rows lo.. of the frame's bordered planes
+    (H rows high), origin = ((luma lo, luma H), (chroma lo, chroma H)):
+    each window is then placed as it would be in the whole plane
+    (P._slice_start over H) and read lo rows up."""
     ref_y, ref_u, ref_v = refs
     idx = mb["inter_idx"]
     t = mb["table"][idx]
-    r, c = idx // C, idx % C
+    r, c = idx // C + row0, idx % C
+
+    def place(start, w, k):
+        if origin is None:
+            return start
+        lo, dim = origin[k]
+        return P._slice_start(start - 2, dim, w) + 2 - lo
+
     ref = t[:, COL_REF]
     mv, uv = t[:, COL_MV:COL_MV + 2], t[:, COL_UVMV:COL_UVMV + 2]
-    sy = torch.stack([B + r * 16 + (mv[:, 0] >> 3),
+    sy = torch.stack([place(B + r * 16 + (mv[:, 0] >> 3), 21, 0),
                       B + c * 16 + (mv[:, 1] >> 3)], 1)
     pred_y = P.mc_predict_blocks(ref_y, ref, sy, mv[:, 1] & 7, mv[:, 0] & 7,
                                  taps, 16)
-    sc = torch.stack([B2 + r * 8 + (uv[:, 0] >> 3),
+    sc = torch.stack([place(B2 + r * 8 + (uv[:, 0] >> 3), 13, 1),
                       B2 + c * 8 + (uv[:, 1] >> 3)], 1)
     pred_u = P.mc_predict_blocks(ref_u, ref, sc, uv[:, 1] & 7, uv[:, 0] & 7,
                                  taps, 8)
@@ -80,9 +93,10 @@ def _predict_inter(R, C, refs, mb, taps, split):
         pos, y_mv, uv_mv = split
         S = pos.shape[0]
         sidx = idx[pos]
-        sr, sc_ = sidx // C, sidx % C
+        sr, sc_ = sidx // C + row0, sidx % C
         k = torch.arange(16, device=pos.device)
-        ty = B + sr[:, None] * 16 + (k >> 2) * 4 + (y_mv[..., 0] >> 3)
+        ty = place(B + sr[:, None] * 16 + (k >> 2) * 4 + (y_mv[..., 0] >> 3),
+                   9, 0)
         tx = B + sc_[:, None] * 16 + (k & 3) * 4 + (y_mv[..., 1] >> 3)
         sref = ref[pos]
         tiles = P.mc_predict_tiles(
@@ -93,7 +107,8 @@ def _predict_inter(R, C, refs, mb, taps, split):
         pred_y[pos] = tiles.view(S, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
             .reshape(S, 16, 16)
         q = torch.arange(4, device=pos.device)
-        qy = B2 + sr[:, None] * 8 + (q >> 1) * 4 + (uv_mv[..., 0] >> 3)
+        qy = place(B2 + sr[:, None] * 8 + (q >> 1) * 4 + (uv_mv[..., 0] >> 3),
+                   9, 1)
         qx = B2 + sc_[:, None] * 8 + (q & 1) * 4 + (uv_mv[..., 1] >> 3)
         qstarts = torch.stack([qy, qx], -1).reshape(-1, 2)
         qref = sref.repeat_interleave(4)
@@ -106,24 +121,34 @@ def _predict_inter(R, C, refs, mb, taps, split):
     return pred_y, pred_u, pred_v
 
 
+def inter_planes(R, C, refs, mb, taps, split, row0=0, origin=None):
+    """Stages 1-2 of a frame (or of a row shard of R rows, row0 and
+    origin as in `_predict_inter`): the residual blocks, and fresh
+    bordered planes that hold every inter MB's reconstruction. Returns
+    ((y, u, v), (resid_y, resid_u, resid_v))."""
+    tab = mb["table"]
+    dq = tab[:, COL_DQ:COL_DQ + 6]
+    resid = tf.compute_residual_blocks(
+        mb["qcoeff"], tab[:, COL_Y2BIG] != 0, dq[:, 0:2], dq[:, 2:4],
+        dq[:, 4:6], tab[:, COL_HASY2] != 0)
+    planes = W.alloc_planes(R, C, tab.device)
+    idx = mb["inter_idx"]
+    if idx.shape[0]:
+        preds = _predict_inter(C, refs, mb, taps, split, row0, origin)
+        r, c = idx // C, idx % C
+        for plane, n, pred, res in zip(planes, (16, 8, 8), preds, resid):
+            W.mb_view(plane, R, C, n)[r, c] = \
+                (pred + res[idx]).clamp(0, 255).to(torch.uint8)
+    return planes, resid
+
+
 def decode_frame_device(R, C, simple_lf, do_lf, refs, mb, taps, split):
     """One frame on the device. `mb` holds the uploaded per-frame tensors
     (table [N,MB_COLS] int32, qcoeff [N,25,16] int16, inter_idx [K]);
     refs = (ref_y, ref_u, ref_v) [3,H,W] uint8 stacks (None on keyframes).
     Returns fresh bordered (y, u, v) uint8 planes."""
     tab = mb["table"]
-    dq = tab[:, COL_DQ:COL_DQ + 6]
-    resid = tf.compute_residual_blocks(
-        mb["qcoeff"], tab[:, COL_Y2BIG] != 0, dq[:, 0:2], dq[:, 2:4],
-        dq[:, 4:6], tab[:, COL_HASY2] != 0)
-    y, u, v = W.alloc_planes(R, C, tab.device)
-    idx = mb["inter_idx"]
-    if idx.shape[0]:
-        preds = _predict_inter(R, C, refs, mb, taps, split)
-        r, c = idx // C, idx % C
-        for plane, n, pred, res in zip((y, u, v), (16, 8, 8), preds, resid):
-            W.mb_view(plane, R, C, n)[r, c] = \
-                (pred + res[idx]).clamp(0, 255).to(torch.uint8)
+    (y, u, v), resid = inter_planes(R, C, refs, mb, taps, split)
     W.intra_recon_planes(R, C, y, u, v, *resid,
                          tab[:, COL_INTRA:COL_INTRA + W.INTRA_COLS])
     if do_lf:
@@ -254,13 +279,16 @@ class TorchDecoder(RefDecoder):
         if self._dispatch_pool is None:
             import concurrent.futures as cf
             self._dispatch_pool = cf.ThreadPoolExecutor(max_workers=1)
-        R, C = self.mb_rows, self.mb_cols
+        self.last = self.golden = self.altref = self._zero_frame()
+
+    def _zero_frame(self):
+        """The all-zero frame a new geometry's ring starts from."""
         with self._on_stream():
-            z = DeviceFrame(*(torch.zeros(shape, dtype=torch.uint8,
-                                          device=self.device)
-                              for shape in _plane_shapes(R, C)),
-                            self.w, self.h)
-        self.last = self.golden = self.altref = z
+            return DeviceFrame(*(torch.zeros(shape, dtype=torch.uint8,
+                                             device=self.device)
+                                 for shape in _plane_shapes(self.mb_rows,
+                                                            self.mb_cols)),
+                               self.w, self.h)
 
     def _sync(self):
         """Join the dispatch worker (before any main-thread access to the
@@ -312,10 +340,34 @@ class TorchDecoder(RefDecoder):
 
     def _worker_dispatch(self, np_args, meta):
         """Dispatch-worker thread: upload, run the device work, build the
-        DeviceFrame, apply the reference-ring swap (handles only)."""
-        (R, C, simple_lf, do_lf, frame_type, copy_to_arf, copy_to_gf,
-         refresh_golden, refresh_alt, refresh_last, use_bilinear,
-         w, h) = meta
+        frame, apply the reference-ring swap (handles only)."""
+        cur = self._frame_device(np_args, meta)
+        (frame_type, copy_to_arf, copy_to_gf, refresh_golden, refresh_alt,
+         refresh_last) = meta[4:10]
+        if frame_type == 0:
+            self.golden = self.altref = self.last = cur
+        else:
+            if copy_to_arf == 1:
+                self.altref = self.last
+            elif copy_to_arf == 2:
+                self.altref = self.golden
+            if copy_to_gf == 1:
+                self.golden = self.last
+            elif copy_to_gf == 2:
+                self.golden = self.altref
+            if refresh_golden:
+                self.golden = cur
+            if refresh_alt:
+                self.altref = cur
+            if refresh_last:
+                self.last = cur
+        return cur
+
+    def _frame_device(self, np_args, meta):
+        """Upload one frame's arrays and enqueue its device work; returns
+        the DeviceFrame."""
+        R, C, simple_lf, do_lf = meta[:4]
+        use_bilinear, w, h = meta[10:]
         table, qcoeff, inter_idx, taps, split = np_args
         dev = self.device
         with self._on_stream(), torch.inference_mode():
@@ -339,25 +391,19 @@ class TorchDecoder(RefDecoder):
             if self._stream is not None:
                 ready = torch.cuda.Event()
                 ready.record(self._stream)
-        cur = DeviceFrame(cy, cu, cv, w, h, ready)
-        if frame_type == 0:
-            self.golden = self.altref = self.last = cur
-        else:
-            if copy_to_arf == 1:
-                self.altref = self.last
-            elif copy_to_arf == 2:
-                self.altref = self.golden
-            if copy_to_gf == 1:
-                self.golden = self.last
-            elif copy_to_gf == 2:
-                self.golden = self.altref
-            if refresh_golden:
-                self.golden = cur
-            if refresh_alt:
-                self.altref = cur
-            if refresh_last:
-                self.last = cur
-        return cur
+        return DeviceFrame(cy, cu, cv, w, h, ready)
+
+    def _upload_frame(self, planes):
+        """A DeviceFrame holding the decoder's own copy of bordered numpy
+        uint8 planes (y, u, v), validated against its geometry."""
+        arrs = checked_planes(self.mb_rows, self.mb_cols, planes)
+        with self._on_stream():
+            ts = [torch.from_numpy(a).to(self.device) for a in arrs]
+            ready = None
+            if self._stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        return DeviceFrame(*ts, self.w, self.h, ready)
 
     def _swap_and_filter(self):
         # the device-side swap runs on the dispatch worker; here only the
@@ -557,24 +603,18 @@ class TorchDecoder(RefDecoder):
 _plane_shapes = W.plane_shapes
 
 
-def _upload_frame(dec, planes):
-    """A DeviceFrame holding the decoder's own copy of bordered numpy
-    uint8 planes (y, u, v), validated against its geometry."""
-    shapes = _plane_shapes(dec.mb_rows, dec.mb_cols)
-    ts = []
-    with dec._on_stream():
-        for a, shape in zip(planes, shapes):
-            a = np.asarray(a)
-            if a.dtype != np.uint8 or a.shape != shape:
-                raise ValueError(f"reference plane must be uint8 {shape},"
-                                 f" got {a.dtype} {a.shape}")
-            # own copy: the decoder never aliases the caller's array
-            ts.append(torch.from_numpy(np.array(a)).to(dec.device))
-        ready = None
-        if dec._stream is not None:
-            ready = torch.cuda.Event()
-            ready.record(dec._stream)
-    return DeviceFrame(*ts, dec.w, dec.h, ready)
+def checked_planes(R, C, planes):
+    """Own numpy copies of bordered uint8 reference planes (y, u, v) of
+    an R x C MB frame; raises ValueError on any other dtype or shape."""
+    out = []
+    for a, shape in zip(planes, _plane_shapes(R, C)):
+        a = np.asarray(a)
+        if a.dtype != np.uint8 or a.shape != shape:
+            raise ValueError(f"reference plane must be uint8 {shape},"
+                             f" got {a.dtype} {a.shape}")
+        # own copy: the decoder never aliases the caller's array
+        out.append(np.array(a))
+    return out
 
 
 def load_reference(dec, which, planes):
@@ -588,15 +628,16 @@ def load_reference(dec, which, planes):
     if which not in ("last", "golden", "altref"):
         raise KeyError(which)
     dec._sync()
-    setattr(dec, which, _upload_frame(dec, planes))
+    setattr(dec, which, dec._upload_frame(planes))
 
 
 def load_reference_ring(dec, last, golden, altref):
     """Install a whole reference ring in a TorchDecoder: each of
     last/golden/altref as in `load_reference`, e.g. another decoder's
-    reference frames."""
+    reference frames. A sharded decoder (parallel/sharded_decode.py)
+    splits each frame over its shards."""
     dec._sync()
-    frames = [_upload_frame(dec, p) for p in (last, golden, altref)]
+    frames = [dec._upload_frame(p) for p in (last, golden, altref)]
     dec.last, dec.golden, dec.altref = frames
 
 

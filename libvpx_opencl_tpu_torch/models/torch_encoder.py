@@ -95,14 +95,17 @@ def _uv_inter_rd(R, C, ref_u, ref_v, ub, vb, mv8, taps, dqu, qidx, tcb2):
 
 
 def _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb, dqu, qidx, tcb2,
-                 uvmode_cost, rdmult, rddiv):
-    """RD-pick the chroma intra mode (rd_pick_intra_mbuv_mode role).
+                 uvmode_cost, rdmult, rddiv, row_off=0):
+    """RD-pick the chroma intra mode (rd_pick_intra_mbuv_mode role) of
+    the R x C MBs from frame row row_off on.
     Returns (best mode [N], its rate incl. signaling [N], dist [N])."""
     N = R * C
     mb = torch.arange(N, device=ub.device)
-    cpos = torch.stack([B2 + (mb // C) * 8, B2 + (mb % C) * 8], 1)
-    ipu = ME.intra_mode_preds(src_u_pl, cpos, R, C, 8).transpose(0, 1)
-    ipv = ME.intra_mode_preds(src_v_pl, cpos, R, C, 8).transpose(0, 1)
+    cpos = torch.stack([B2 + (mb // C + row_off) * 8, B2 + (mb % C) * 8], 1)
+    ipu = ME.intra_mode_preds(src_u_pl, cpos, R, C, 8, row_off) \
+        .transpose(0, 1)
+    ipv = ME.intra_mode_preds(src_v_pl, cpos, R, C, 8, row_off) \
+        .transpose(0, 1)
     ruv, duv = RD.rd_uv(ub[None] - ipu, vb[None] - ipv,
                         dqu[None].expand(4, N, 2), qidx[None].expand(4, N),
                         tcb2)
@@ -189,11 +192,30 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
     cost; ymode_cost [5]; modectx [6,4] MODE_CONTEXTS; c0tab/c1tab [256]
     bit-cost tables.
     Returns (mv [N,2], ref_k [N] -1=intra else 0..nr-1, ymode, uvmode)."""
-    N = R * C
-    dev = yb.device
-    mb = torch.arange(N, device=dev)
-    mb_r, mb_c = mb // C, mb % C
-    mb_pos = torch.stack([B + mb_r * 16, B + mb_c * 16], 1).to(torch.int32)
+    mvs = _search_refs(R, C, n_refs, me_step, refs_y, yb, centers, taps,
+                       lo_r, hi_r, lo_c, hi_c, mvcost, prev8, sadpb)
+    return _rd_inter(R, C, n_refs, use_bpred, mvs,
+                     ME.near_mv_lattice(mvs[0], R, C), refs_y, refs_u,
+                     refs_v, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb, taps,
+                     mvcost, tcb0, tcb1, tcb2, tcb3, dq1, dq2, dqu, qidx,
+                     rdmult, rddiv, ymode_cost, uvmode_cost, bmode_cost, ci0,
+                     ci1, modectx, c0tab, c1tab)
+
+
+def _mb_pos(R, C, device, row_off=0):
+    """[N,2] int32 padded luma plane coordinates of the R x C MBs from
+    frame row row_off on."""
+    mb = torch.arange(R * C, device=device)
+    return torch.stack([B + (mb // C + row_off) * 16, B + (mb % C) * 16],
+                       1).to(torch.int32)
+
+
+def _search_refs(R, C, n_refs, me_step, refs_y, yb, centers, taps, lo_r,
+                 hi_r, lo_c, hi_c, mvcost, prev8, sadpb, row_off=0):
+    """Per-reference full-pel search + sub-pel refine of the R x C MBs
+    from frame row row_off on: a list of [N,2] eighth-pel MVs, one per
+    reference."""
+    mb_pos = _mb_pos(R, C, yb.device, row_off)
     pen = (mvcost, prev8, sadpb)
     bounds = (lo_r, hi_r, lo_c, hi_c)
     mvs = []
@@ -203,7 +225,24 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
         mv8k, _ = ME.subpel_refine(refs_y[k], yb, mb_pos, mv_fp, sad_fp,
                                    taps, bounds, mv_pen=pen)
         mvs.append(mv8k)
-    nearest, near, best_mv, cnt = ME.near_mv_lattice(mvs[0], R, C)
+    return mvs
+
+
+def _rd_inter(R, C, n_refs, use_bpred, mvs, lattice, refs_y, refs_u, refs_v,
+              src_y_pl, src_u_pl, src_v_pl, yb, ub, vb, taps, mvcost, tcb0,
+              tcb1, tcb2, tcb3, dq1, dq2, dqu, qidx, rdmult, rddiv,
+              ymode_cost, uvmode_cost, bmode_cost, ci0, ci1, modectx, c0tab,
+              c1tab, row_off=0):
+    """The RD half of `_decide_rd_inter` over the R x C MBs from frame row
+    row_off on, given the searched MVs and the near-MV lattice over them
+    (ME.near_mv_lattice's 4-tuple). B_PRED (use_bpred) only for a whole
+    frame (row_off 0)."""
+    N = R * C
+    dev = yb.device
+    mb = torch.arange(N, device=dev)
+    mb_r, mb_c = mb // C + row_off, mb % C
+    mb_pos = _mb_pos(R, C, dev, row_off)
+    nearest, near, best_mv, cnt = lattice
     cnt = cnt.long()
     p0, p1, p2, p3 = (modectx[cnt[:, i], i].long() for i in range(4))
     czero = c0tab[p0]
@@ -212,7 +251,7 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
     cnew = cnear - c0tab[p2] + c1tab[p2] + c0tab[p3]
 
     # Y candidates: 4 intra + (zero, nearest, near, new) per reference
-    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16) \
+    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16, row_off) \
         .transpose(0, 1)                                  # [4,N,16,16]
     zero2 = torch.zeros(N, 2, dtype=torch.int32, device=dev)
     cand_mvs = []
@@ -237,7 +276,7 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
     # UV: best intra mode (shared by intra candidates) + per-candidate MC
     uvbest, ruv_i, duv_i = _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb,
                                         dqu, qidx, tcb2, uvmode_cost,
-                                        rdmult, rddiv)
+                                        rdmult, rddiv, row_off)
     pu, pv = _mc_uv(refs_u, refs_v, flat_ref, mb_r.repeat(Kin),
                     mb_c.repeat(Kin), flat_mv, taps)
     ruv_in, duv_in = RD.rd_uv(ub[None] - pu.reshape(Kin, N, 8, 8),
@@ -263,6 +302,9 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
                              ry[4 + i] + ruv_in[i])
             dist_rows.append(dy[4 + i] / 4.0 + duv_in[i] / 4.0)
     if use_bpred:
+        if row_off:
+            raise ValueError("the B_PRED candidate is costed over whole "
+                             "frames only")
         br, bd = _bpred_rd(R, C, src_y_pl, yb, dq1, qidx, tcb3, bmode_cost,
                            rdmult, rddiv)
         rate_rows.append(ci0 + ymode_cost[4] + br + ruv_i)
@@ -283,19 +325,19 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
 
 def _decide_rd_key(R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
                    tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdmult, rddiv,
-                   ymode_cost, uvmode_cost):
+                   ymode_cost, uvmode_cost, row_off=0):
     """Keyframe RD decision over {DC,V,H,TM} (vp8_rd_pick_intra_mode
-    role, rdopt.c:2374)."""
+    role, rdopt.c:2374) of the R x C MBs from frame row row_off on."""
     N = R * C
-    mb = torch.arange(N, device=yb.device)
-    mb_pos = torch.stack([B + (mb // C) * 16, B + (mb % C) * 16], 1)
-    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16).transpose(0, 1)
+    mb_pos = _mb_pos(R, C, yb.device, row_off)
+    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16, row_off) \
+        .transpose(0, 1)
     ry, dy, _ = RD.rd_y16(yb[None] - ipreds, dq1[None].expand(4, N, 2),
                           dq2[None].expand(4, N, 2),
                           qidx[None].expand(4, N), tcb0, tcb1)
     uvbest, ruv_i, duv_i = _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb,
                                         dqu, qidx, tcb2, uvmode_cost,
-                                        rdmult, rddiv)
+                                        rdmult, rddiv, row_off)
     rate = ymode_cost[:, None] + ry + ruv_i[None]
     dist = dy / 4.0 + duv_i[None] / 4.0
     rdall = RD.rdc(rate, dist, rdmult, rddiv)
@@ -327,20 +369,23 @@ def _trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
 def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
                    src_y_blocks, src_u_blocks, src_v_blocks,
                    mode, uv_mode, intra, mv8, taps, dq_y1, dq_y2, dq_uv,
-                   qidx, tcb0, tcb1, tcb2, bmode_cost, rdmult, rddiv):
+                   qidx, tcb0, tcb1, tcb2, bmode_cost, rdmult, rddiv,
+                   row_off=0, top=None):
     """Program B: MC predictions (per-MB reference selection), the trellis
     on the inter MBs (use_trellis: SpeedFeatures.trellis), then the encode
     wavefront, whose B_PRED lanes run when bmode_cost is given (the
     caller passes None on frames without a B_PRED MB). The JAX function
     runs the trellis on every MB and keeps it for the inter ones; each
     block's result depends only on its own MB, so running it on the inter
-    MBs alone gives the same levels. Returns (qcoeff int16 [N,25,16], eobs
-    [N,25], uv_mode, y, u, v, bmodes): the reconstruction as fresh
+    MBs alone gives the same levels. A row shard passes row_off (the frame
+    row of its row 0) and `top` (wf.encode_recon_planes': the
+    reconstructed pixel rows above it). Returns (qcoeff int16 [N,25,16],
+    eobs [N,25], uv_mode, y, u, v, bmodes): the reconstruction as fresh
     zero-bordered uint8 planes, not yet loop-filtered."""
     N = R * C
     dev = src_y_blocks.device
     mb = torch.arange(N, device=dev)
-    mb_r, mb_c = mb // C, mb % C
+    mb_r, mb_c = mb // C + row_off, mb % C
     rk = refk.clamp(0, refs_y.shape[0] - 1)
     starts = torch.stack([B + mb_r * 16 + (mv8[:, 0] >> 3),
                           B + mb_c * 16 + (mv8[:, 1] >> 3)], 1)
@@ -364,7 +409,7 @@ def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
     qcoeff, eobs, y, u, v, bmodes = wf.encode_recon_planes(
         R, C, src_y_blocks, src_u_blocks, src_v_blocks, pred_y, pred_u,
         pred_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx, ext,
-        bmode_cost, rdmult, rddiv)
+        bmode_cost, rdmult, rddiv, top)
     return qcoeff.to(torch.int16), eobs, uv_mode, y, u, v, bmodes
 
 
@@ -385,8 +430,8 @@ class TorchEncoder(Encoder):
     (decision + transform + reconstruction + loop filter on the device;
     entropy packing on the host)."""
 
-    # device-program dispatch hooks (a multi-device encoder would override
-    # these with equivalents of identical global-view signatures)
+    # device-program dispatch hooks (parallel/sharded_encode.py overrides
+    # them with equivalents of identical global-view signatures)
     _decide_key_fn = staticmethod(_decide_rd_key)
     _decide_inter_fn = staticmethod(_decide_rd_inter)
     _encode_fn = staticmethod(_encode_device)

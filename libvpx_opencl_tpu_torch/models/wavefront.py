@@ -142,7 +142,7 @@ def transform_quant_recon(src_y, src_u, src_v, pred_y, pred_u, pred_v,
 
 
 def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
-                 rddiv):
+                 rddiv, top_interior=False):
     """B_PRED luma of M MBs (r, c) whose neighbours are reconstructed in
     `plane`: the 16-step sub-block recursion over a [M,17,21] workspace
     (row 0 = top-left, above and above-right; column 0 = left; rows 4, 8,
@@ -156,11 +156,8 @@ def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
     m = r.shape[0]
     dev = plane.device
     b = W.BORDER
-    y0, x0, above, left, tl = W._edges(plane, b, 16, r, c)
-    a4 = torch.arange(4, device=dev)
-    ar = plane[(y0 - 1)[:, None], x0[:, None] + 16 + a4].to(torch.int32)
-    ar = torch.where(c[:, None] == C - 1, above[:, 15:16], ar)
-    ar = torch.where((r > 0)[:, None], ar, 127)
+    y0, x0, above, left, tl = W._edges(plane, b, 16, r, c, top_interior)
+    ar = W.above_right(plane, C, r, c, y0, x0, above, top_interior)
     ws = torch.zeros(m, 17, 21, dtype=torch.int32, device=dev)
     ws[:, 0, 0] = tl
     ws[:, 0, 1:17] = above
@@ -196,11 +193,17 @@ def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
 def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
                         inter_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv,
                         qidx, ext=None, bmode_cost=None, rdmult=None,
-                        rddiv=None):
-    """Whole-frame encode pass. Arguments as `encode_recon_blocks`.
+                        rddiv=None, top=None):
+    """Whole-frame encode pass. Arguments as `encode_recon_blocks`; `top`,
+    for a row shard below the first (parallel/sharded_encode.py): None, or
+    the (y, u, v) reconstructed pixel rows just above the grid, each as
+    wide as its bordered plane. They go into the planes' border row -1 and
+    MB row 0 predicts from them as an interior row (ops/wavefront.py's
+    top_interior).
     Returns (qcoeff [N,25,16] i32, eobs [N,25] i32, y, u, v, bmodes [N,16]
     i32): the reconstruction as fresh zero-bordered uint8 planes
-    (ops/wavefront.py layout), not yet loop-filtered."""
+    (ops/wavefront.py layout), not yet loop-filtered (with `top`, border
+    row -1 holds it)."""
     N = R * C
     dev = src_y_b.device
     srcs = (src_y_b, src_u_b, src_v_b)
@@ -210,6 +213,11 @@ def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
     bmodes = torch.zeros(N, 16, dtype=torch.int32, device=dev)
     planes = tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
                    for shape in W.plane_shapes(R, C))
+    top_interior = top is not None
+    if top_interior:
+        for plane, b, row in zip(planes, (W.BORDER, W.BORDER // 2,
+                                          W.BORDER // 2), top):
+            plane[b - 1] = row
     # the wavefront's shape is decided on the host: one small copy
     intra_np = intra.cpu().numpy().astype(bool)
     bpred_np = intra_np & (mode.cpu().numpy() == W.B_PRED_M)
@@ -246,13 +254,14 @@ def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
                                   n_bp):
             idx = order[start:end]
             r, c = idx // C, idx % C
-            up, lf = r > 0, c > 0
+            up, lf = (r > 0) | top_interior, c > 0
             preds = []
             for plane, n, b, md in zip(planes, (16, 8, 8),
                                        (W.BORDER, W.BORDER // 2,
                                         W.BORDER // 2),
                                        (mode, uv_mode, uv_mode)):
-                _, _, above, left, tl = W._edges(plane, b, n, r, c)
+                _, _, above, left, tl = W._edges(plane, b, n, r, c,
+                                                 top_interior)
                 preds.append(P.pred_nxn(md[idx], above, left, tl, up, lf, n))
             q, e, *rec = transform_quant_recon(
                 *(s[idx] for s in srcs), *preds, *(t[idx] for t in dqs))
@@ -263,7 +272,7 @@ def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
                 bi = idx[k:]
                 qb, eb, rec_b, bm = _bpred_lanes(
                     planes[0], C, r[k:], c[k:], src_y_b[bi], dq_y1[bi],
-                    qidx[bi], bmode_cost, rdmult, rddiv)
+                    qidx[bi], bmode_cost, rdmult, rddiv, top_interior)
                 rec[0][k:] = rec_b
                 bmodes[bi] = bm
                 q[k:, :16] = qb

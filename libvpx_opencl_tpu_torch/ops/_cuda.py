@@ -31,9 +31,9 @@ _I = ctypes.c_int
 KERNELS = {
     "intra_wavefront": ("intra_wavefront.cu", "intra_wavefront",
                         [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _I, _I,
-                         _I, _VP, _VP]),
+                         _I, _I, _VP, _VP]),
     "lf_wavefront": ("lf_wavefront.cu", "lf_wavefront",
-                     [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP,
+                     [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP,
                       _VP]),
     "sad_grid": ("sad_grid.cu", "sad_grid",
                  [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
@@ -41,8 +41,9 @@ KERNELS = {
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its
-#: count only where it launches its kernel
+#: count only where it launches its kernel, through `count_launch`
 launches = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
 
 _fns = None
 _lock = threading.Lock()
@@ -128,3 +129,10 @@ def check(rc, name):
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {rc}")
+
+
+def count_launch(name):
+    """Add one to `launches[name]`; safe from several threads (the GOP
+    and stream-parallel drivers launch kernels from one thread each)."""
+    with _count_lock:
+        launches[name] += 1

@@ -12,8 +12,10 @@ and the argmin after it are shared code, so the two routes cannot differ
 in a decision. Ties go to the first index of the flattened grid, as
 jnp.argmin and torch.argmin both do.
 
-The row-sharding parameters of the JAX functions (row_off, above_mv,
-n_rows_total) belong to the multi-chip encoder and are not carried over.
+`near_mv_lattice` and `intra_mode_preds` take the JAX functions'
+row-sharding parameters (row_off, above_mv, n_rows_total) for the
+row-sharded encoder (parallel/sharded_encode.py); their defaults give the
+whole-frame result.
 """
 from __future__ import annotations
 
@@ -164,7 +166,8 @@ def subpel_refine(ref_plane, src_blocks, mb_pos, mv_fp, best_sad, taps,
     return mv, best_sad
 
 
-def near_mv_lattice(mvf, R, C):
+def near_mv_lattice(mvf, R, C, above_mv=None, row_off=0,
+                    n_rows_total=None):
     """Batched vp8_find_near_mvs (findnearmv.c:24-140, decodemv.c:348-407)
     under the device-decision approximation that every in-frame neighbour
     is an inter MB coded with the given motion field (sign bias 0, no
@@ -172,17 +175,26 @@ def near_mv_lattice(mvf, R, C):
     final modes; this one prices NEAREST/NEAR/ZERO candidates during the
     batched decision.
 
-    mvf [N, 2] int32 eighth-pel. Returns (nearest, near, best) [N, 2]
-    clamped MVs and cnt [N, 4] for MODE_CONTEXTS indexing."""
+    mvf [N, 2] int32 eighth-pel. A row shard passes `above_mv` [C, 2]
+    (the last MV row of the rows above it; ignored where row_off == 0),
+    `row_off` (the frame row of its row 0) and `n_rows_total` (the frame's
+    MB rows), so that the neighbours and the vp8_clamp_mv2 bounds are the
+    frame's. Returns (nearest, near, best) [N, 2] clamped MVs and cnt
+    [N, 4] for MODE_CONTEXTS indexing."""
     dev = mvf.device
     i32 = torch.int32
+    if n_rows_total is None:
+        n_rows_total = R
     mv = mvf.reshape(R, C, 2)
     zero2 = torch.zeros(R, C, 2, dtype=mv.dtype, device=dev)
-    amv = torch.cat([zero2[:1], mv[:-1]], 0)
+    above_row = zero2[0] if above_mv is None else \
+        above_mv.reshape(C, 2).to(mv.dtype)
+    amv = torch.cat([above_row[None], mv[:-1]], 0)
     lmv = torch.cat([zero2[:, :1], mv[:, :-1]], 1)
-    almv = torch.cat([zero2[:1],
+    al_row0 = torch.cat([zero2[0, :1], above_row[:-1]], 0)
+    almv = torch.cat([al_row0[None],
                       torch.cat([zero2[1:, :1], mv[:-1, :-1]], 1)], 0)
-    rows = torch.arange(R, device=dev)[:, None]
+    rows = torch.arange(R, device=dev)[:, None] + row_off
     cols = torch.arange(C, device=dev)[None, :]
     va = (rows > 0).expand(R, C)
     vl = (cols > 0).expand(R, C)
@@ -245,7 +257,7 @@ def near_mv_lattice(mvf, R, C):
     best = torch.where((c1 >= cnt0)[..., None], n1, 0)
     # vp8_clamp_mv2 bounds (MARGIN = 16<<3)
     lo_r = (-(rows * 16) << 3) - 128
-    hi_r = (((R - 1 - rows) * 16) << 3) + 128
+    hi_r = (((n_rows_total - 1 - rows) * 16) << 3) + 128
     lo_c = (-(cols * 16) << 3) - 128
     hi_c = (((C - 1 - cols) * 16) << 3) + 128
 
@@ -261,11 +273,13 @@ def near_mv_lattice(mvf, R, C):
             clamp(best).reshape(N, 2), cnt)
 
 
-def intra_mode_preds(src_plane, mb_pos, n_rows, n_cols, bw):
+def intra_mode_preds(src_plane, mb_pos, n_rows, n_cols, bw, row_off=0):
     """Batched DC/V/H/TM 16x16/8x8 predictions from SOURCE neighbours
     (decision approximation; reconstruction later uses true reconstructed
     neighbours in the encode wavefront). mb_pos [N,2] padded plane coords
-    of each block, at least one pixel inside the plane's border.
+    of each block, at least one pixel inside the plane's border; row_off:
+    the frame row of the blocks' row 0 (a row shard's; the 127 edge
+    applies only on the frame's top row).
     Returns [N, 4, bw, bw] int32."""
     n = mb_pos.shape[0]
     dev = src_plane.device
@@ -275,7 +289,7 @@ def intra_mode_preds(src_plane, mb_pos, n_rows, n_cols, bw):
     left = src_plane[py[:, None] + a, (px - 1)[:, None]].to(torch.int32)
     tl = src_plane[py - 1, px - 1].to(torch.int32)
     idx = torch.arange(n, device=dev)
-    r0 = (idx // n_cols) == 0
+    r0 = (idx // n_cols + row_off) == 0
     c0 = (idx % n_cols) == 0
     above = torch.where(r0[:, None], 127, above)
     left = torch.where(c0[:, None], 129, left)

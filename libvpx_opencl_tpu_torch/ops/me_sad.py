@@ -164,4 +164,4 @@ def _launch(ref_plane, wy, wx, src, out, rng, plan):
                 src.shape[0], rng, plan.k, plan.groups, plan.mbs,
                 plan.pitch, plan.shared, stream)
     _cuda.check(rc, "sad_grid")
-    launches["sad_grid"] += 1
+    _cuda.count_launch("sad_grid")

@@ -24,6 +24,15 @@ order gives the diagonal result.
 The TPU kernels' diag-major lane layout exists for the TPU's 128-lane
 vector memory and is not carried over.
 
+Both stages take `top_interior`, for a row shard of a taller frame
+(parallel/sharded_wavefront.py): MB row 0 is then an interior row whose
+above pixels lie in the plane's top border. K1 reads the above row,
+above-right and top-left pixels there instead of the frame-edge values
+(the caller has put the last unfiltered pixel row above into border row
+-1); K2 filters row 0's top MB edge against border rows -4..-1 (the
+filtered last rows above) and changes at most rows -3..-1. With the flag
+off every call gives what it gave before the flag existed.
+
 Per kernel there are three entry points:
   * `*_planes`: the plane-level wrapper the decoder calls. For CUDA
     tensors it launches the kernel (one launch per call, counted in
@@ -167,9 +176,9 @@ def _all_on_cpu(*ts):
 
 
 def _launch(name, R, planes, *args):
-    """One launch of kernel `name` on the current stream over bordered
-    planes (y, u, v), with an R+1 int32 zero scratch (row ticket and
-    per-row progress counters) allocated on that stream."""
+    """One launch of kernel `name` on the current stream of the planes'
+    device over bordered planes (y, u, v), with an R+1 int32 zero scratch
+    (row ticket and per-row progress counters) allocated on that stream."""
     y, u, v = planes
     fn = _cuda.load()[name]
     with torch.cuda.device(y.device):
@@ -179,20 +188,20 @@ def _launch(name, R, planes, *args):
         rc = fn(_origin(y, b), y.stride(0), _origin(u, b2), _origin(v, b2),
                 u.stride(0), *args, sync.data_ptr(), stream)
     _cuda.check(rc, name)
-    launches[name] += 1
+    _cuda.count_launch(name)
 
 
 # ---------------------------------------------------------------------------
 # K1: intra reconstruction
 
-def _edges(plane, border, n, r, c):
+def _edges(plane, border, n, r, c, top_interior=False):
     """Above row, left column and top-left pixel of MBs (r, c), with the
     frame-edge values (above 127, left 129, top-left 127 on MB row 0 and
-    129 on MB column 0)."""
+    129 on MB column 0); with top_interior, row 0 reads the top border."""
     y0 = border + r * n
     x0 = border + c * n
     a = torch.arange(n, device=plane.device)
-    up, lf = r > 0, c > 0
+    up, lf = (r > 0) | top_interior, c > 0
     above = plane[(y0 - 1)[:, None], x0[:, None] + a].to(torch.int32)
     above = torch.where(up[:, None], above, 127)
     left = plane[y0[:, None] + a, (x0 - 1)[:, None]].to(torch.int32)
@@ -208,14 +217,22 @@ def _put_blocks(plane, y0, x0, blocks):
           x0[:, None, None] + a[None, None, :]] = blocks.to(torch.uint8)
 
 
-def _bpred_mbs(plane, C, r, c, y0, x0, above, left, tl, resid, bmodes):
-    """B_PRED luma: 16 sub-blocks in raster order over a [M,17,21]
-    workspace (row 0 = top-left, above and above-right; column 0 = left)."""
-    m = r.shape[0]
+def above_right(plane, C, r, c, y0, x0, above, top_interior=False):
+    """[M,4] above-right pixels of B_PRED MBs (r, c) whose above rows are
+    `above`: the row above past the MB, its pixel 15 in the last MB column,
+    127 on MB row 0 unless top_interior."""
     a4 = torch.arange(4, device=plane.device)
     ar = plane[(y0 - 1)[:, None], x0[:, None] + 16 + a4].to(torch.int32)
     ar = torch.where(c[:, None] == C - 1, above[:, 15:16], ar)
-    ar = torch.where((r > 0)[:, None], ar, 127)
+    return torch.where(((r > 0) | top_interior)[:, None], ar, 127)
+
+
+def _bpred_mbs(plane, C, r, c, y0, x0, above, left, tl, resid, bmodes,
+               top_interior):
+    """B_PRED luma: 16 sub-blocks in raster order over a [M,17,21]
+    workspace (row 0 = top-left, above and above-right; column 0 = left)."""
+    m = r.shape[0]
+    ar = above_right(plane, C, r, c, y0, x0, above, top_interior)
     ws = torch.zeros(m, 17, 21, dtype=torch.int32, device=plane.device)
     ws[:, 0, 0] = tl
     ws[:, 0, 1:17] = above
@@ -234,7 +251,8 @@ def _bpred_mbs(plane, C, r, c, y0, x0, above, left, tl, resid, bmodes):
     return ws[:, 1:17, 1:17]
 
 
-def _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c):
+def _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c,
+                top_interior=False):
     """Reconstruct the intra MBs among MBs (r, c) in place, given that
     every MB they depend on is done (any device)."""
     b, b2 = BORDER, BORDER // 2
@@ -244,39 +262,46 @@ def _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c):
         return
     r, c, n = r[sel], c[sel], n[sel]
     mode, uv_mode = params[n, 0], params[n, 1]
-    up, lf = r > 0, c > 0
-    y0, x0, above, left, tl = _edges(y, b, 16, r, c)
+    up, lf = (r > 0) | top_interior, c > 0
+    y0, x0, above, left, tl = _edges(y, b, 16, r, c, top_interior)
     rec = (P.pred_nxn(mode, above, left, tl, up, lf, 16)
            + resid_y[n]).clamp(0, 255)
     isb = mode == B_PRED_M
     if bool(isb.any()):
         rec[isb] = _bpred_mbs(y, C, r[isb], c[isb], y0[isb], x0[isb],
                               above[isb], left[isb], tl[isb],
-                              resid_y[n[isb]], params[n[isb], 4:20])
+                              resid_y[n[isb]], params[n[isb], 4:20],
+                              top_interior)
     _put_blocks(y, y0, x0, rec)
     for plane, resid in ((u, resid_u), (v, resid_v)):
-        y0, x0, above, left, tl = _edges(plane, b2, 8, r, c)
+        y0, x0, above, left, tl = _edges(plane, b2, 8, r, c, top_interior)
         rec = (P.pred_nxn(uv_mode, above, left, tl, up, lf, 8)
                + resid[n]).clamp(0, 255)
         _put_blocks(plane, y0, x0, rec)
 
 
-def _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params):
+def _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params,
+                        top_interior=False):
     """Plain PyTorch K1 over bordered planes, in place (any device)."""
     for d in range(diag_depth(R, C)):
         r, c = _diag_mbs(R, C, d, y.device)
-        _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c)
+        _intra_step(C, y, u, v, resid_y, resid_u, resid_v, params, r, c,
+                    top_interior)
 
 
-def intra_recon_planes(R, C, y, u, v, resid_y, resid_u, resid_v, params):
+def intra_recon_planes(R, C, y, u, v, resid_y, resid_u, resid_v, params,
+                       top_interior=False):
     """K1 in place on bordered uint8 planes that hold every inter MB's
     reconstruction. resid_* [N,16,16] / [N,8,8] int32; params
-    [N, >=INTRA_COLS] int32 (pack_intra_params; rows may be strided).
+    [N, >=INTRA_COLS] int32 (pack_intra_params; rows may be strided);
+    top_interior: MB row 0 reads its above pixels from the top border
+    (module docstring).
 
     CUDA tensors: one launch of csrc/intra_wavefront.cu, counted in
     launches["intra_wavefront"]. CPU tensors: the plain version."""
     if _all_on_cpu(y, u, v, resid_y, resid_u, resid_v, params):
-        _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params)
+        _intra_planes_plain(R, C, y, u, v, resid_y, resid_u, resid_v, params,
+                            top_interior)
         return
     N = R * C
     if C > MAX_COLS:
@@ -288,7 +313,7 @@ def intra_recon_planes(R, C, y, u, v, resid_y, resid_u, resid_v, params):
         "params": (params, (N, INTRA_COLS), False)})
     _launch("intra_wavefront", R, (y, u, v), resid_y.data_ptr(),
             resid_u.data_ptr(), resid_v.data_ptr(), params.data_ptr(),
-            params.stride(0), R, C)
+            params.stride(0), R, C, int(bool(top_interior)))
 
 
 def _intra_blocks(planes_fn, R, C, inter_y, inter_u, inter_v,
@@ -325,11 +350,12 @@ def intra_recon_plain(R, C, inter_y, inter_u, inter_v, resid_y, resid_u,
 # K2: loop filter
 
 def _filter_mbs(planes, border, n, r, c, simple, mblim, blim, lim, hev,
-                noskip):
+                noskip, top_interior=False):
     """Filter MBs (r, c) of one diagonal of each plane in `planes` (same
     geometry) as one [P*M, n+4, n+4] patch batch (rows and columns 0-3:
     the above and left neighbours' pixels) and write it back. Edge order:
-    left MB edge, inner vertical, top MB edge, inner horizontal."""
+    left MB edge, inner vertical, top MB edge (on row 0 only with
+    top_interior), inner horizontal."""
     a = torch.arange(n + 4, device=r.device)
     rows = (border + r * n - 4)[:, None, None] + a[None, :, None]
     cols = (border + c * n - 4)[:, None, None] + a[None, None, :]
@@ -357,14 +383,14 @@ def _filter_mbs(planes, border, n, r, c, simple, mblim, blim, lim, hev,
     edge(4, True, True, (c > 0)[:, None])
     for pos in range(8, n + 4, 4):
         edge(pos, True, False, noskip)
-    edge(4, False, True, (r > 0)[:, None])
+    edge(4, False, True, ((r > 0) | top_interior)[:, None])
     for pos in range(8, n + 4, 4):
         edge(pos, False, False, noskip)
     for pl, part in zip(planes, patch.to(torch.uint8).chunk(k)):
         pl[rows, cols] = part
 
 
-def _lf_step(C, simple, y, u, v, params, r, c):
+def _lf_step(C, simple, y, u, v, params, r, c, top_interior=False):
     """Loop-filter MBs (r, c) in place, given that every MB they depend on
     is done and no two of them touch the same pixels (any device)."""
     b, b2 = BORDER, BORDER // 2
@@ -375,32 +401,35 @@ def _lf_step(C, simple, y, u, v, params, r, c):
     r, c, n = r[act], c[act], n[act]
     mblim, blim, lim, hev = (params[n, k][:, None] for k in range(1, 5))
     noskip = (params[n, 5] != 0)[:, None]
-    _filter_mbs((y,), b, 16, r, c, simple, mblim, blim, lim, hev, noskip)
+    _filter_mbs((y,), b, 16, r, c, simple, mblim, blim, lim, hev, noskip,
+                top_interior)
     if not simple:
         _filter_mbs((u, v), b2, 8, r, c, False, mblim, blim, lim, hev,
-                    noskip)
+                    noskip, top_interior)
 
 
-def _lf_planes_plain(R, C, simple, y, u, v, params):
+def _lf_planes_plain(R, C, simple, y, u, v, params, top_interior=False):
     """Plain PyTorch K2 over bordered planes, in place (any device)."""
     for d in range(diag_depth(R, C)):
         r, c = _diag_mbs(R, C, d, y.device)
-        _lf_step(C, simple, y, u, v, params, r, c)
+        _lf_step(C, simple, y, u, v, params, r, c, top_interior)
 
 
-def loop_filter_planes(R, C, simple, y, u, v, params):
+def loop_filter_planes(R, C, simple, y, u, v, params, top_interior=False):
     """K2 in place on bordered uint8 planes. params [N, >=6] int32
-    (pack_lf_params; rows may be strided).
+    (pack_lf_params; rows may be strided); top_interior: MB row 0's top
+    edge is filtered against the top border (module docstring).
 
     CUDA tensors: one launch of csrc/lf_wavefront.cu, counted in
     launches["lf_wavefront"]. CPU tensors: the plain version."""
     if _all_on_cpu(y, u, v, params):
-        _lf_planes_plain(R, C, simple, y, u, v, params)
+        _lf_planes_plain(R, C, simple, y, u, v, params, top_interior)
         return
     _check_cuda(R, C, (y, u, v),
                 {"params": (params, (R * C, 6), False)})
     _launch("lf_wavefront", R, (y, u, v), params.data_ptr(),
-            params.stride(0), R, C, int(bool(simple)))
+            params.stride(0), R, C, int(bool(simple)),
+            int(bool(top_interior)))
 
 
 def _lf_blocks(planes_fn, R, C, simple, y, u, v, flevel, mblim, blim, lim,
