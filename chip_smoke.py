@@ -84,7 +84,20 @@ code != 0). It prints, in order:
     at 1080p, 2 groups x 2 frames, equal to a sequential encode with the
     same keyframes; the BatchTranscoder on two QCIF jobs with resume,
     equal to a sequential transcode;
-  * one JSON line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+  * K4, the device detokenizer (`entropy_phases`): its main path,
+    tools/bench_entropy_torch.py over all 30 frames of bench_1080p (the
+    host decoder's entropy layer; K4 through its wrapper once per frame,
+    equal to the host C++ detokenizer on every MB with tokens, the
+    keyframe included; host C++, K4 and wrapper-with-uploads ms per
+    frame); K4 vs its plain version on qcoeff, eobs, skipped and states
+    (exact) on bench_1080p frames 0, 1 and 15, every frame of part4_cif
+    (4 partitions) and inter_qcif, random bytes at 17 x 30 MBs in 8
+    partitions and R = 2 < P = 4; each 1080p frame's launch alone by CUDA
+    events, ns per dependent bool read, the bytes bound; then
+    `python3 bench_torch.py` as a subprocess (BENCH_RUNS=3), its JSON line
+    bit-exact, its fps beside the card's name and power limit;
+  * one JSON line {"kernels": [...]} (K1-K4) and, last, {"ok": true,
+    "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -716,6 +729,196 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     print(f"multi-shard phases: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     return total
+
+
+def entropy_phases(torch, np, card):
+    """K4, the device detokenizer, on the card (after the other phases).
+    The main path: tools/bench_entropy_torch.py over all 30 frames of
+    bench_1080p (the host decoder's entropy layer, K4 through its wrapper
+    on every frame, equal to the host C++ detokenizer on every MB that
+    carries tokens, the keyframe included), counts zeroed just before and
+    read just after. Then K4 against its plain version on every output
+    (bench_1080p frames 0, 1 and 15, every frame of part4_cif and
+    inter_qcif, random bytes at 17 x 30 MBs in 8 partitions, R < P), each
+    1080p frame's launch alone by CUDA events, and `bench_torch.py` as a
+    subprocess. Returns (K4's main-path launches, its `kernels` entry)."""
+    import importlib.util
+    from libvpx_opencl_tpu_torch.ops import entropy_device as ED
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_entropy_torch", os.path.join(HERE, "tools",
+                                            "bench_entropy_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    bench = os.path.join(VECTORS, "bench_1080p.ivf")
+    n_frames = len(tool.read_ivf(bench).frames)
+
+    for name in ED.launches:
+        ED.launches[name] = 0
+    dec = tool.measure(bench, n_frames, "cuda", keep=range(n_frames))
+    count = ED.launches["detokenize"]
+    summary = tool.report(bench, dec)
+    if count != n_frames + 1 or len(dec.rows) != n_frames:
+        fail(f"K4: {count} launches over {len(dec.rows)} of {n_frames} "
+             "frames; one per frame and one untimed first call is the "
+             "design")
+    print(f"K4 on bench_1080p: {n_frames}/{n_frames} frames equal to the "
+          f"host C++ detokenizer on every MB with tokens, {count} launches "
+          "(one per frame, one untimed first call)", flush=True)
+
+    err = 0
+    plain_ms, reads = {}, {}
+
+    def k4_vs_plain(label, R, C, P, arrays):
+        nonlocal err
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        t0 = time.perf_counter()
+        want = ED.detokenize_frame_plain(R, C, P, *cpu)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = ED.detokenize_frame_device(R, C, P, *(t.to(dev) for t in cpu))
+        torch.cuda.synchronize()
+        got = [g.cpu() for g in got]
+        d = max_abs_diff(torch, got, want)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(err, d)
+        print(f"K4 vs plain {label}: max_abs_diff {d} on qcoeff, eobs, "
+              f"skipped and states; plain {ms:.1f} ms, "
+              f"{sum(ED.plain_reads)} bool reads", flush=True)
+        if d or not same:
+            fail(f"K4 disagrees with detokenize_frame_plain on {label}")
+        return ms, list(ED.plain_reads)
+
+    for f in (0, 1, 15):
+        R, C, P, *arrays = dec.kept[f]
+        plain_ms[f], reads[f] = k4_vs_plain(f"bench_1080p frame {f}", R, C,
+                                            P, arrays)
+    for name in ("part4_cif", "inter_qcif"):
+        path = os.path.join(VECTORS, f"{name}.ivf")
+        n = len(tool.read_ivf(path).frames)
+        small = tool.measure(path, n, "cuda", keep=range(n))
+        for f in range(n):
+            R, C, P, *arrays = small.kept[f]
+            k4_vs_plain(f"{name} frame {f} (P={P})", R, C, P, arrays)
+    rng = np.random.default_rng(17)
+    R, C, P, L = 17, 30, 8, 4096
+    N = R * C
+    k4_vs_plain("random bytes 17x30, P=8", R, C, P, [
+        rng.integers(0, 256, (P, L)).astype(np.uint8),
+        rng.integers(L // 2, L + 1, P).astype(np.int32),
+        np.tile(np.asarray([0, 255, -8, 0], np.int32), (P, 1)),
+        dec.kept[1][6], rng.random(N) < 0.7,
+        (rng.random(N) < 0.2).astype(np.int32)])
+    k4_vs_plain("R=2 < P=4", 2, 3, 4, [
+        rng.integers(0, 256, (4, 64)).astype(np.uint8),
+        np.asarray([64, 40, 64, 64], np.int32),
+        np.asarray([[0, 255, -8, 0], [0x5A0000, 200, 2, 5],
+                    [0x123456, 200, 3, 17], [7, 129, -3, 60]], np.int32),
+        dec.kept[0][6], np.asarray([1, 0, 1, 1, 1, 0], bool),
+        np.asarray([0, 0, 1, 0, 0, 1], np.int32)])
+
+    # each 1080p frame's launch alone (outputs allocated and zeroed
+    # before the first event), and the bytes bound from this run's sizes:
+    # each input read once, each output written once
+    alone, byte_s = [], []
+    for f in range(n_frames):
+        R, C, P, *arrays = dec.kept[f]
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in arrays]
+        ED._check_cuda(R, C, P, t)
+        N = R * C
+        i32 = torch.int32
+        out = (torch.zeros((N, 25, 16), dtype=i32, device=dev),
+               torch.empty((N, 25), dtype=i32, device=dev),
+               torch.empty(N, dtype=i32, device=dev),
+               torch.empty((P, 4), dtype=i32, device=dev))
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        ED.launch(R, C, P, *t, *out)
+        e1.record()
+        if f == 0:                 # read while the keyframe's launch runs
+            clocks = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True, timeout=60).stdout.strip()
+        e1.synchronize()
+        alone.append(e0.elapsed_time(e1))
+        byte_s.append((sum(a.nbytes for a in arrays) +
+                       sum(o.numel() * 4 for o in out)) / HBM_BYTES_PER_S)
+    key_ms, inter_ms = alone[0], statistics.mean(alone[1:])
+    rows = dec.rows
+    host_key = rows[0]["host_ms"]
+    host_inter = statistics.mean(r["host_ms"] for r in rows[1:])
+    wrap_key = rows[0]["wrapper_ms"]
+    wrap_inter = statistics.mean(r["wrapper_ms"] for r in rows[1:])
+    # ~12 integer operations per bool read (split, compare, select,
+    # normalise, fill) over the 32-bit rate, on the frames whose reads the
+    # plain version counted
+    op_s = {f: 12 * sum(reads[f]) / INT_OPS_PER_S for f in reads}
+    bound_ms = statistics.mean(byte_s) * 1e3
+    bound_by = "bytes" if all(byte_s[f] >= op_s[f] for f in reads) \
+        else "operations"
+    ns_key = key_ms * 1e6 / max(reads[0])
+    ns_inter = statistics.mean(alone[f] * 1e6 / max(reads[f])
+                               for f in (1, 15))
+    print(f"K4 detokenize on bench_1080p (P=1), launch alone by events: "
+          f"keyframe {key_ms:.3f} ms ({max(reads[0])} dependent bool reads, "
+          f"{ns_key:.2f} ns/read), inter frames mean {inter_ms:.3f} ms "
+          f"(frames 1/15: {max(reads[1])}/{max(reads[15])} reads, "
+          f"{ns_inter:.2f} ns/read); through the wrapper with uploads "
+          f"{wrap_key:.3f} / {wrap_inter:.3f} ms; host C++ "
+          f"{host_key:.3f} / {host_inter:.3f} ms; K4 / host on inter "
+          f"frames {inter_ms / host_inter:.2f}x; plain (CPU) "
+          f"{plain_ms[0]:.1f} / {plain_ms[1]:.1f} / {plain_ms[15]:.1f} ms "
+          f"(frames 0/1/15); bound by bytes {bound_ms:.4f} ms/frame "
+          f"(operations {op_s[0] * 1e3:.5f} ms on the keyframe); SM clock "
+          f"during the keyframe's launch, and its maximum: {clocks} [{card}]",
+          flush=True)
+
+    # the port's headline bench as a user runs it
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "bench_torch.py")],
+        env=dict(os.environ, BENCH_RUNS="3"), capture_output=True,
+        text=True, timeout=600, cwd=HERE)
+    for line in proc.stderr.strip().splitlines()[-6:]:
+        print(f"  bench_torch: {line}", flush=True)
+    try:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        line = None
+    if proc.returncode != 0 or line is None or \
+            line.get("metric") != "1080p_decode_fps_bit_exact_torch" or \
+            not line.get("value"):
+        fail(f"bench_torch.py: exit {proc.returncode}, last line "
+             f"{proc.stdout.strip()[-300:]!r}, stderr "
+             f"{proc.stderr.strip()[-2000:]!r}")
+    print(f"bench_torch.py (BENCH_RUNS=3): {line['value']} fps bit-exact, "
+          f"{line['vs_baseline']}x the 19.6 fps vpxdec baseline [{card}]",
+          flush=True)
+    print(f"entropy phases: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return {"detokenize": count}, {
+        "name": "detokenize", "route": "cuda",
+        "source": "libvpx_opencl_tpu_torch/csrc/detokenize.cu",
+        "replaces": "libvpx_opencl_tpu/ops/entropy_device.py:239",
+        "launches": count, "max_abs_err": err, "max_abs_diff": err,
+        "ms": statistics.mean(alone),
+        "plain_ms": statistics.mean(plain_ms.values()),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "card": card, "key_ms": key_ms, "inter_ms": inter_ms,
+        "wrapper_key_ms": wrap_key, "wrapper_inter_ms": wrap_inter,
+        "host_key_ms": host_key, "host_inter_ms": host_inter,
+        "plain_key_ms": plain_ms[0],
+        "plain_inter_ms": statistics.mean([plain_ms[1], plain_ms[15]]),
+        "chain_reads_key": max(reads[0]),
+        "chain_reads_inter": [max(reads[1]), max(reads[15])],
+        "ns_per_read_key": ns_key, "ns_per_read_inter": ns_inter,
+        "sm_clocks_during_key": clocks,
+        "upload_bytes": summary["upload_bytes"],
+        "coef_upload_bytes": summary["coef_upload_bytes"],
+        "bench_torch_fps": line["value"]}
 
 
 def main():
@@ -1396,6 +1599,11 @@ def main():
                                           slice2_payloads, err).items():
         launches[name] += count
 
+    # -- K4, the device detokenizer, and the port's headline bench ---------
+    k4_launches, k4_entry = entropy_phases(torch, np, card)
+    for name, count in k4_launches.items():
+        launches[name] += count
+
     kernels = []
     for key, name, src, replaces, bs in (
             ("k1", "intra_wavefront", "libvpx_opencl_tpu_torch/csrc/"
@@ -1415,6 +1623,7 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms.get(key),
             "card": card})
+    kernels.append(k4_entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"card check to here", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

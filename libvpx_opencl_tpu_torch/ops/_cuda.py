@@ -38,6 +38,9 @@ KERNELS = {
     "sad_grid": ("sad_grid.cu", "sad_grid",
                  [_VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                   _VP]),
+    "detokenize": ("detokenize.cu", "detokenize",
+                   [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                    _I, _I, _VP]),
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its
