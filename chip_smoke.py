@@ -13,8 +13,8 @@ MD5 gate, then six more conformance streams, drives the user surface
 (decoder API, reference controls, error concealment, postproc, the
 tpuvpxdec CLI, ARNR and the analysis ops) against the host path, encodes
 four of the decoded 1080p frames (1 key + 3 inter) through TorchEncoder
-on the card with a closed-loop gate under SLICE2_SF, and the first three
-(1 key + 2 inter) at the default speed features (B_PRED and trellis on),
+on the card with a closed-loop gate under SLICE2_SF, and the first ten
+(1 key + 9 inter) at the default speed features (B_PRED and trellis on),
 drives the multi-GPU drivers (sharded decode and encode, GOP-parallel
 decode and encode, the batch transcoder) on virtual row shards of the
 card, and times decode, encode and the kernels. Any failure raises (exit
@@ -25,6 +25,10 @@ code != 0). It prints, in order:
     versions on random cases at R x C = (4,6), (3,3), (1,5), (5,1), (1,1),
     (2,1), (1,2), (2,2), (200,3) (more MB rows than the card has SMs) and
     (68,120): exact equality (tolerance 0: integer math);
+  * K5 (encode wavefront) vs its plain version on random frames at 4x6,
+    3x3, 1x5, 5x1 (C = 1), 2x2, 1x1 and 8x40, qindex 4, 24, 47, 48 and
+    127, intra and B_PRED shares up to all-B_PRED, a random top border row
+    (top_interior) on half of them: all six outputs exact;
   * the 1080p decode: MD5 of every frame; K1 launched once per frame, K2
     once per frame with a filter level;
   * the six extra streams' MD5 results;
@@ -54,24 +58,32 @@ code != 0). It prints, in order:
     the CPU;
   * a QCIF clip encoded under SLICE2_SF on the card and on the CPU:
     payload bytes equal;
-  * the 1080p encode under SLICE2_SF: bytes, luma PSNR, K3/K2 launches per
-    frame (K3 once per reference searched, K2 once), the payload decoded
-    by TorchDecoder on the card equal to the encoder's reconstruction;
+  * the 1080p encode under SLICE2_SF: bytes, luma PSNR, K3/K2/K5 launches
+    per frame (K3 once per reference searched, K2 and K5 once), the payload
+    decoded by TorchDecoder on the card equal to the encoder's
+    reconstruction;
     full_search through K3 equal to full_search through the plain version
     on an inter frame's tensors;
   * encode frames/s over the inter frames, the keyframe's seconds, the
-    encode wavefront's seconds on the keyframe, K3's time per launch and
-    that of torch.cdist(p=1) on the same candidates (its yardstick, held
-    equal to K3);
+    encode wavefront's seconds (inter batch + K5) per frame with K5's chain
+    of dependent MB steps, K3's time per launch and that of
+    torch.cdist(p=1) on the same candidates (its yardstick, held equal to
+    K3);
   * at the default speed features: the QCIF clip's payloads, and the
     packets of the port's CodecEncoder, equal on the card and the CPU;
-  * the 1080p encode (1 key + 2 inter) at the default speed features with
-    the same gates:
-    per frame its bytes beside the SLICE2_SF bytes, B_PRED MBs, inter MBs
-    the trellis ran on, dependency levels walked and seconds; then a
+  * the 1080p encode (1 key + 9 inter) at the default speed features with
+    the same gates (K5 once per frame):
+    per frame its bytes beside the SLICE2_SF bytes, intra and B_PRED MBs,
+    inter MBs the trellis ran on, the plain version's dependency levels,
+    its seconds and K5's time by CUDA events in the encoder; frames/s;
+    then K5 vs plain on that encode's keyframe and inter frame 1 (all six
+    outputs exact; the plain version's time) and K5's launch alone on
+    every frame's inputs (CUDA events, median of 3, after the inter batch)
+    with its chain of dependent MB steps, its us per step and its bound;
+    then a
     second encode of the first two frames timing the B_PRED decision
-    candidate, the encode wavefront, its B_PRED lanes and the trellis,
-    each synchronised;
+    candidate, the encode wavefront, K5 inside it and the trellis, each
+    synchronised;
   * the multi-GPU drivers on virtual row shards of the one card
     (`multi_shard_phases`): K1 and K2 with top_interior vs their plain
     versions at 17 x 120 and 3 x 5 (exact); ShardedTorchDecoder on the
@@ -80,10 +92,11 @@ code != 0). It prints, in order:
     and 4 shards beside TorchDecoder (in turns, median of 3);
     decode_streams with 2 groups x 2 shards on inter_cif and part4_cif;
     ShardedTorchEncoder at 4 shards under SLICE2_SF, its payloads equal to
-    the SLICE2_SF phase's, K3 once per reference per shard; encode_gops
-    at 1080p, 2 groups x 2 frames, equal to a sequential encode with the
-    same keyframes; the BatchTranscoder on two QCIF jobs with resume,
-    equal to a sequential transcode;
+    the SLICE2_SF phase's, K3 once per reference per shard, K5 once per
+    shard; encode_gops at 1080p, 2 groups x 2 frames, equal to a
+    sequential encode with the same keyframes, K5 once per frame; the
+    BatchTranscoder on two QCIF jobs with resume, equal to a sequential
+    transcode;
   * K4, the device detokenizer (`entropy_phases`): its main path,
     tools/bench_entropy_torch.py over all 30 frames of bench_1080p (the
     host decoder's entropy layer; K4 through its wrapper once per frame,
@@ -96,7 +109,7 @@ code != 0). It prints, in order:
     events, ns per dependent bool read, the bytes bound; then
     `python3 bench_torch.py` as a subprocess (BENCH_RUNS=3), its JSON line
     bit-exact, its fps beside the card's name and power limit;
-  * one JSON line {"kernels": [...]} (K1-K4) and, last, {"ok": true,
+  * one JSON line {"kernels": [...]} (K1-K5) and, last, {"ok": true,
     "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -114,12 +127,17 @@ GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (1, 1), (2, 1), (1, 2), (2, 2),
          (200, 3), (68, 120)]
 EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
                  "odd_65x49", "part4_cif", "seg_roi_qcif"]
-# 1080p frames of the default-feature encode (1 key + 2 inter: each inter
-# frame takes ~25 s on the H100, and the script stays in half its limit),
-# and of its timed split (1 key + 1 inter, to make room for the
-# multi-shard phases)
-DEFAULT_FRAMES = 3
+# 1080p frames of the SLICE2_SF encode (1 key + 3 inter), of the
+# default-feature encode (1 key + 9 inter) and of its timed split
+SLICE2_FRAMES = 4
+DEFAULT_FRAMES = 10
 SPLIT_FRAMES = 2
+# K5 vs plain on random frames: geometries (C = 1 included), qindex values
+# on both sides of the zbin factor's switch at 48, and (intra share,
+# B_PRED share) pairs; every other case has a random top border row
+K5_GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (2, 2), (1, 1), (8, 40)]
+K5_QINDEX = [4, 24, 47, 48, 127]
+K5_SHARES = [(1.0, 1.0), (0.7, 0.5), (1.0, 0.0), (0.5, 0.3)]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -154,6 +172,45 @@ def lf_case(np, rng, R, C):
             rng.integers(0, 256, (N, 8, 8)), flevel, 2 * (flevel + 2) + 1,
             2 * flevel + 1, np.maximum(flevel // 2, 1),
             np.clip(flevel // 16 + 1, 0, 3), rng.random(N) < 0.7)
+
+
+def encode_case(np, rng, R, C, qindex, intra_share, bpred_share, with_top):
+    """Random inputs of the encode wavefront (numpy): flat or textured
+    sources, inter predictions near them or not, modes with a share of
+    B_PRED, the quantizer and RD constants of qindex (the encoder's), and
+    optionally a random top border row per plane. Returns (args, kw) as
+    encode_recon_planes takes them."""
+    from libvpx_opencl_tpu_torch.models import rdopt
+    from libvpx_opencl_tpu_torch.models.refdec import dequant_factors
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    N = R * C
+    flat = rng.random(N) < 0.4
+    src = []
+    for n in (16, 8, 8):
+        base = rng.integers(20, 236, (N, 1, 1)) + rng.integers(-3, 4,
+                                                               (N, n, n))
+        src.append(np.where(flat[:, None, None], base,
+                            rng.integers(0, 256, (N, n, n))).astype(np.int32))
+    near = rng.random(N) < 0.5
+    inter = [np.where(near[:, None, None],
+                      np.clip(x + rng.integers(-6, 7, x.shape), 0, 255),
+                      rng.integers(0, 256, x.shape)).astype(np.int32)
+             for x in src]
+    mode = np.where(rng.random(N) < bpred_share, W.B_PRED_M,
+                    rng.integers(0, 4, N)).astype(np.int32)
+    uv_mode = rng.integers(0, 4, N).astype(np.int32)
+    intra = rng.random(N) < intra_share
+    dqs = [np.tile(np.asarray(d, np.int32), (N, 1))
+           for d in dequant_factors(qindex, 0, 0, 0, 0, 0)]
+    rdm, rdd, _ = rdopt.rd_consts(qindex)
+    args = src + inter + [mode, uv_mode, intra] + dqs + \
+        [np.full(N, qindex, np.int32)]
+    kw = {"bmode_cost": np.asarray(rdopt.BMODE_COST, np.int32),
+          "rdmult": np.float32(rdm), "rddiv": np.float32(rdd)}
+    if with_top:
+        kw["top"] = [rng.integers(0, 256, shape[1]).astype(np.uint8)
+                     for shape in W.plane_shapes(R, C)]
+    return args, kw
 
 
 def max_abs_diff(torch, got, want):
@@ -496,6 +553,82 @@ def surface_phases(torch, np, card):
     return api_launches
 
 
+def k5_to_card(torch, np, args, kw):
+    """encode_case's numpy inputs as tensors on the card."""
+    dev = torch.device("cuda")
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    kw = dict(kw)
+    kw["bmode_cost"] = up(kw["bmode_cost"])
+    for k in ("rdmult", "rddiv"):
+        kw[k] = torch.tensor(float(kw[k]), dtype=torch.float32, device=dev)
+    if "top" in kw:
+        kw["top"] = [up(row) for row in kw["top"]]
+    return [up(a) for a in args], kw
+
+
+def k5_chain(np, R, C, intra):
+    """Dependent MB steps on K5's critical path: a block runs its row's
+    intra MBs in turn, and MB (r,c) waits until row r-1 has finished
+    min(c+2, C) MBs (inter MBs are done before the launch). 2(R-1)+C on a
+    keyframe."""
+    intra = np.asarray(intra, bool).reshape(R, C)
+    done = np.zeros((R + 1, C), np.int64)   # last finish at or left of c
+    for r in range(R):
+        prev = 0
+        for c in range(C):
+            if intra[r, c]:
+                prev = max(prev, done[r, min(c + 1, C - 1)]) + 1
+            done[r + 1, c] = prev
+    return int(done.max())
+
+
+def k5_vs_plain(torch, label, R, C, args, kw, err, plain_ms=None):
+    """K5 (encode_recon_planes on the card) vs _encode_planes_plain on the
+    same tensors: all six outputs exact; the plain version timed when
+    plain_ms (a list) is given."""
+    from libvpx_opencl_tpu_torch.models import wavefront as EW
+    got = EW.encode_recon_planes(R, C, *args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = EW._encode_planes_plain(R, C, *args, **kw)
+    torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    d = max_abs_diff(torch, got, want)
+    err["encode_wavefront"] = max(err["encode_wavefront"], d)
+    if d:
+        names = ("qcoeff", "eobs", "y", "u", "v", "bmodes")
+        bad = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+        fail(f"K5 disagrees with _encode_planes_plain at {label}: {bad}")
+    return got
+
+
+def k5_phases(torch, np, err):
+    """K5 vs its plain version on random frames: each of K5_GEOMS at each
+    of K5_QINDEX with one (intra, B_PRED) share pair in turn, every share
+    pair at 8 x 40, a top border row on every other case."""
+    t0 = time.perf_counter()
+    cases = []
+    for i, (R, C) in enumerate(K5_GEOMS):
+        for j, q in enumerate(K5_QINDEX):
+            pairs = K5_SHARES if (R, C) == (8, 40) and j == 1 else \
+                [K5_SHARES[(i + j) % len(K5_SHARES)]]
+            for ish, bsh in pairs:
+                cases.append((R, C, q, ish, bsh, (i + j) % 2 == 0))
+    for k, (R, C, q, ish, bsh, top) in enumerate(cases):
+        rng = np.random.default_rng(9000 + k)
+        args, kw = k5_to_card(torch, np, *encode_case(
+            np, rng, R, C, q, ish, bsh, top))
+        k5_vs_plain(torch, f"{R}x{C} q{q}", R, C, args, kw, err)
+    print(f"K5 vs plain on {len(cases)} random frames ({sorted(set(K5_GEOMS))}"
+          f", qindex {K5_QINDEX}, intra / B_PRED shares {K5_SHARES}, top "
+          f"border row on half of them): all six outputs exact, "
+          f"max_abs_diff {err['encode_wavefront']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     """The multi-GPU drivers on the one card, with virtual row shards
     (parallel/mesh.py puts shard i on card i % cards): K1/K2 with
@@ -650,32 +783,36 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     zero()
     enc = ShardedTorchEncoder(1920, 1080, qindex=24, n_devices=4)
     enc.sf = TE.SLICE2_SF
-    secs, k3, want_k3 = [], [], []
+    secs, k3, want_k3, k5 = [], [], [], []
     for i, frame in enumerate(src_frames):
         refs = 1 + (enc.ref_gold is not enc.ref_last) + (
             enc.ref_alt is not enc.ref_last and enc.ref_alt is not enc.ref_gold)
         want_k3.append(refs * len(enc.rows) if i else 0)
-        before = W.launches["sad_grid"]
+        before = dict(W.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         payload = enc.encode_frame(*frame)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        k3.append(W.launches["sad_grid"] - before)
+        k3.append(W.launches["sad_grid"] - before["sad_grid"])
+        k5.append(W.launches["encode_wavefront"]
+                  - before["encode_wavefront"])
         if payload != slice2_payloads[i]:
             fail(f"ShardedTorchEncoder 4 shards frame {i}: payload differs "
                  f"from the single-card SLICE2_SF encode")
     got = add()
-    if k3 != want_k3 or \
-            got["lf_wavefront"] != len(enc.rows) * len(src_frames):
+    per = len(enc.rows) * len(src_frames)
+    if k3 != want_k3 or got["lf_wavefront"] != per or k5 != \
+            [len(enc.rows)] * len(src_frames):
         fail(f"ShardedTorchEncoder: K3 launches per frame {k3}, K2 "
-             f"{got['lf_wavefront']}")
+             f"{got['lf_wavefront']}, K5 per frame {k5}")
     print(f"ShardedTorchEncoder 4 shards (MB rows "
           f"{[r1 - r0 for r0, r1 in enc.rows]}) under SLICE2_SF: "
           f"{len(src_frames)} 1080p payloads == the single-card encode's; "
           f"K3 launches per frame {k3} (one per reference per shard), K2 "
-          f"launches {got['lf_wavefront']}; seconds per frame "
-          f"{[round(x, 3) for x in secs]} [{card}]", flush=True)
+          f"launches {got['lf_wavefront']}, K5 launches per frame {k5} (one "
+          f"per shard); seconds per frame {[round(x, 3) for x in secs]} "
+          f"[{card}]", flush=True)
 
     # 5. encode_gops at 1080p: 2 groups x 2 frames vs sequential
     zero()
@@ -694,10 +831,14 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     if par != seq:
         fail("encode_gops at 1080p differs from the sequential encode with "
              "the same keyframes")
+    if got["encode_wavefront"] != len(src_frames):
+        fail(f"encode_gops: K5 launched {got['encode_wavefront']} times for "
+             f"{len(src_frames)} frames")
     print(f"encode_gops 1080p, 2 groups x 2 frames under SLICE2_SF: == "
           f"sequential ({[len(p) for p in par]} bytes); {gop_s:.3f} s on 2 "
           f"threads vs {seq_s:.3f} s sequential; K3 launches "
-          f"{got['sad_grid']} [{card}]", flush=True)
+          f"{got['sad_grid']}, K5 launches {got['encode_wavefront']} "
+          f"[{card}]", flush=True)
 
     # 6. BatchTranscoder on the card: two QCIF jobs, then resume
     jobs = [os.path.join(VECTORS, f"{n}.ivf") for n in ("kf_qcif",
@@ -705,7 +846,11 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     with tempfile.TemporaryDirectory(dir=HERE) as tmp:
         zero()
         state = BatchTranscoder(jobs, tmp, qindex=40).run()
-        add()
+        got = add()
+        n_enc = sum(v["frames"] for v in state["stats"].values())
+        if got["encode_wavefront"] != n_enc:
+            fail(f"BatchTranscoder: K5 launched {got['encode_wavefront']} "
+                 f"times for {n_enc} encoded frames")
         before = json.dumps(state, sort_keys=True)
         again = BatchTranscoder(jobs, tmp, qindex=40).run()
         if json.dumps(again, sort_keys=True) != before:
@@ -725,7 +870,8 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     print(f"BatchTranscoder on the card, 2 QCIF jobs: == sequential "
           f"transcode; resume leaves the checkpoint as it was "
           f"(frames per job: "
-          f"{[v['frames'] for v in state['stats'].values()]})", flush=True)
+          f"{[v['frames'] for v in state['stats'].values()]}, K5 launches "
+          f"{got['encode_wavefront']})", flush=True)
     print(f"multi-shard phases: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     return total
@@ -960,7 +1106,8 @@ def main():
                 for a in arrs]
 
     # -- K1 / K2 vs plain on random cases --------------------------------
-    err = {"intra_wavefront": 0, "lf_wavefront": 0, "sad_grid": 0}
+    err = {"intra_wavefront": 0, "lf_wavefront": 0, "sad_grid": 0,
+           "encode_wavefront": 0}
     for R, C in GEOMS:
         rng = np.random.default_rng(R * 1000 + C)
         args = to_dev(intra_case(np, rng, R, C))
@@ -982,6 +1129,7 @@ def main():
                 fail(f"K2 disagrees with loop_filter_plain at {R}x{C}")
             err["lf_wavefront"] = max(err["lf_wavefront"], d)
     torch.cuda.synchronize()
+    k5_phases(torch, np, err)
 
     # -- main path: bench_1080p through the port's entry point -----------
     bench = os.path.join(VECTORS, "bench_1080p.ivf")
@@ -989,7 +1137,7 @@ def main():
     for name in W.launches:
         W.launches[name] = 0
     per_frame = []                # (K1, K2 launches, filter level)
-    src_frames = []               # decoded frames 0-3: the encoder's input
+    src_frames = []               # decoded frames 0-9: the encoder's input
     n = 0
     dec = TD.TorchDecoder(device="cuda")
     for payload, _pts in read_ivf(bench).frames:
@@ -1001,7 +1149,7 @@ def main():
             dec.filter_level))
         if not show:
             continue
-        if n < 4:
+        if n < DEFAULT_FRAMES:
             src_frames.append(tuple(np.array(p) for p in planes))
         if n >= len(golden) or frame_md5(*planes) != golden[n]:
             fail(f"bench_1080p frame {n}: MD5 mismatch")
@@ -1321,13 +1469,14 @@ def main():
         mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
         return 10 * np.log10(255 ** 2 / mse) if mse > 0 else 99.0
 
+    slice2_frames = src_frames[:SLICE2_FRAMES]
     for name in W.launches:
         W.launches[name] = 0
     enc = new_encoder()
     dec = TD.TorchDecoder(device="cuda")
-    enc_launches = {"sad_grid": 0, "lf_wavefront": 0}
+    enc_launches = {"sad_grid": 0, "lf_wavefront": 0, "encode_wavefront": 0}
     slice2_bytes, slice2_payloads = [], []
-    for i, frame in enumerate(src_frames):
+    for i, frame in enumerate(slice2_frames):
         want_k3 = refs_searched(enc) if i else 0
         before = dict(W.launches)
         payload = enc.encode_frame(*frame)
@@ -1335,8 +1484,10 @@ def main():
         slice2_payloads.append(payload)
         k3 = W.launches["sad_grid"] - before["sad_grid"]
         k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
+        k5 = W.launches["encode_wavefront"] - before["encode_wavefront"]
         enc_launches["sad_grid"] += k3
         enc_launches["lf_wavefront"] += k2
+        enc_launches["encode_wavefront"] += k5
         # the decoder that checks the payload launches K1 and K2 too:
         # those launches are a check and are not counted
         show, planes = dec.decode_frame(payload)
@@ -1344,10 +1495,11 @@ def main():
         p = psnr(frame[0], recon[0])
         print(f"encode 1080p frame {i} ({'key' if i == 0 else 'inter'}): "
               f"{len(payload)} bytes, luma PSNR {p:.2f} dB, K3 launches "
-              f"{k3}, K2 launches {k2}", flush=True)
-        if k3 != want_k3 or k2 != 1:
+              f"{k3}, K2 launches {k2}, K5 launches {k5}", flush=True)
+        if k3 != want_k3 or k2 != 1 or k5 != 1:
             fail(f"encode frame {i}: K3 launched {k3} times for {want_k3} "
-                 f"references, K2 {k2} times for one loop filter")
+                 f"references, K2 {k2} times for one loop filter, K5 {k5} "
+                 f"times for one encode wavefront")
         if not show or any(not np.array_equal(a, b)
                            for a, b in zip(planes, recon)):
             fail(f"encode frame {i}: the decoded payload differs from the "
@@ -1363,13 +1515,12 @@ def main():
     # the route comparison below.
     enc = new_encoder()
     ew_fn, fs_fn = EW.encode_recon_planes, ME.full_search
-    frame_s, ew_s, ew_levels, fs_args = [], [], [], []
+    frame_s, ew_s, ew_steps, fs_args = [], [], [], []
 
     def probe_ew(*a):
         # a = (R, C, three source and three prediction tensors, mode,
-        # uv_mode, intra, ...): batches of intra MBs the wavefront walks
-        ew_levels.append(int(EW.intra_levels(
-            a[0], a[1], a[10].cpu().numpy()).max()) + 1)
+        # uv_mode, intra, ...)
+        ew_steps.append(k5_chain(np, a[0], a[1], a[10].cpu().numpy()))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = ew_fn(*a)
@@ -1383,7 +1534,7 @@ def main():
 
     EW.encode_recon_planes, ME.full_search = probe_ew, probe_fs
     try:
-        for frame in src_frames:
+        for frame in slice2_frames:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             enc.encode_frame(*frame)
@@ -1395,10 +1546,10 @@ def main():
     print(f"encode 1080p: {enc_fps:.4f} frames/s over {len(frame_s) - 1} "
           f"inter frames ({[round(x, 3) for x in frame_s[1:]]} s), keyframe "
           f"{frame_s[0]:.3f} s [{card}]", flush=True)
-    print(f"encode wavefront (encode_recon_planes) of those frames: "
-          f"keyframe {ew_s[0]:.3f} s, inter "
-          f"{[round(x, 3) for x in ew_s[1:]]} s; intra levels walked "
-          f"{ew_levels} [{card}]", flush=True)
+    print(f"encode wavefront (encode_recon_planes: inter batch + K5) of "
+          f"those frames: keyframe {ew_s[0]:.4f} s, inter "
+          f"{[round(x, 4) for x in ew_s[1:]]} s; K5's chain of dependent MB "
+          f"steps {ew_steps} [{card}]", flush=True)
 
     # K3 route vs plain route on inter frame 1's tensors
     fa, fkw = fs_args[0]
@@ -1501,61 +1652,162 @@ def main():
           f"bytes, B_PRED MBs {small['cuda'][2]}); CodecEncoder card "
           f"packets == CPU packets", flush=True)
 
-    # -- main path 3: 1 key + 2 inter 1080p frames at default features ---
+    # -- main path 3: 1 key + 9 inter 1080p frames at default features ---
     def default_encoder():
         return TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
 
     def frame_shape(enc):
-        """(intra MBs, B_PRED MBs, levels the encode wavefront walked)"""
+        """(intra MBs, B_PRED MBs, the dependency levels the plain version
+        walks)"""
         intra = (enc.reff[1:, 1:] == INTRA_FRAME).reshape(-1)
         bpred = (enc.mode[1:, 1:] == W.B_PRED_M).reshape(-1)
         lv = EW.intra_levels(enc.R, enc.C, intra, bpred)
         return int(intra.sum()), int(bpred.sum()), int(lv.max()) + 1
 
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(clone(v) for v in x)
+        return x
+
+    # every frame's encode_recon_planes arguments are kept for the K5
+    # checks below, and K5's launch is timed by CUDA events in the encoder
+    ew_fn, k5_fn = EW.encode_recon_planes, EW._k5_launch
+    k5_inputs, k5_events = [], []
+
+    def keep_ew(*a):
+        k5_inputs.append(clone(a))
+        return ew_fn(*a)
+
+    def timed_k5(*a):
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        k5_fn(*a)
+        e1.record()
+        k5_events.append((e0, e1))
+
     for name in W.launches:
         W.launches[name] = 0
     enc = default_encoder()
     dec = TD.TorchDecoder(device="cuda")
-    def_launches = {"sad_grid": 0, "lf_wavefront": 0}
-    for i, frame in enumerate(src_frames[:DEFAULT_FRAMES]):
-        want_k3 = refs_searched(enc) if i else 0
-        before = dict(W.launches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        payload = enc.encode_frame(*frame)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        k3 = W.launches["sad_grid"] - before["sad_grid"]
-        k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
-        def_launches["sad_grid"] += k3
-        def_launches["lf_wavefront"] += k2
-        show, planes = dec.decode_frame(payload)
-        recon = enc.ref_last.visible()
-        p = psnr(frame[0], recon[0])
-        n_intra, n_bpred, levels = frame_shape(enc)
-        print(f"encode 1080p default features frame {i} "
-              f"({'key' if i == 0 else 'inter'}): {len(payload)} bytes "
-              f"({slice2_bytes[i]} under SLICE2_SF), luma PSNR {p:.2f} dB, "
-              f"B_PRED MBs {n_bpred}, inter MBs through the trellis "
-              f"{enc.R * enc.C - n_intra}, levels walked {levels}, "
-              f"{secs:.3f} s, K3 launches {k3}, K2 launches {k2} [{card}]",
-              flush=True)
-        if k3 != want_k3 or k2 != 1:
-            fail(f"default-feature encode frame {i}: K3 launched {k3} times "
-                 f"for {want_k3} references, K2 {k2} times for one loop "
-                 f"filter")
-        if not show or any(not np.array_equal(a, b)
-                           for a, b in zip(planes, recon)):
-            fail(f"default-feature encode frame {i}: the decoded payload "
-                 f"differs from the encoder's reconstruction")
-        if p < 30.0:
-            fail(f"default-feature encode frame {i}: luma PSNR {p:.2f} dB "
-                 f"< 30 dB")
+    def_launches = {"sad_grid": 0, "lf_wavefront": 0, "encode_wavefront": 0}
+    def_s = []
+    EW.encode_recon_planes, EW._k5_launch = keep_ew, timed_k5
+    try:
+        for i, frame in enumerate(src_frames[:DEFAULT_FRAMES]):
+            want_k3 = refs_searched(enc) if i else 0
+            before = dict(W.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = enc.encode_frame(*frame)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            def_s.append(secs)
+            k3 = W.launches["sad_grid"] - before["sad_grid"]
+            k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
+            k5 = W.launches["encode_wavefront"] - before["encode_wavefront"]
+            def_launches["sad_grid"] += k3
+            def_launches["lf_wavefront"] += k2
+            def_launches["encode_wavefront"] += k5
+            show, planes = dec.decode_frame(payload)
+            recon = enc.ref_last.visible()
+            p = psnr(frame[0], recon[0])
+            n_intra, n_bpred, levels = frame_shape(enc)
+            print(f"encode 1080p default features frame {i} "
+                  f"({'key' if i == 0 else 'inter'}): {len(payload)} bytes"
+                  + (f" ({slice2_bytes[i]} under SLICE2_SF)"
+                     if i < len(slice2_bytes) else "")
+                  + f", luma PSNR {p:.2f} dB, intra MBs {n_intra}, B_PRED "
+                  f"MBs {n_bpred}, inter MBs through the trellis "
+                  f"{enc.R * enc.C - n_intra}, dependency levels {levels}, "
+                  f"{secs:.4f} s, K5 in the encoder "
+                  f"{k5_events[-1][0].elapsed_time(k5_events[-1][1]):.4f} ms"
+                  f", K3 launches {k3}, K2 launches {k2}, K5 launches {k5} "
+                  f"[{card}]", flush=True)
+            if k3 != want_k3 or k2 != 1 or k5 != 1:
+                fail(f"default-feature encode frame {i}: K3 launched {k3} "
+                     f"times for {want_k3} references, K2 {k2} times for one "
+                     f"loop filter, K5 {k5} times for one encode wavefront")
+            if not show or any(not np.array_equal(a, b)
+                               for a, b in zip(planes, recon)):
+                fail(f"default-feature encode frame {i}: the decoded payload "
+                     f"differs from the encoder's reconstruction")
+            if p < 30.0:
+                fail(f"default-feature encode frame {i}: luma PSNR {p:.2f} "
+                     f"dB < 30 dB")
+    finally:
+        EW.encode_recon_planes, EW._k5_launch = ew_fn, k5_fn
     for name, count in def_launches.items():
         launches[name] += count
+    print(f"encode 1080p default features: "
+          f"{(len(def_s) - 1) / sum(def_s[1:]):.4f} frames/s over "
+          f"{len(def_s) - 1} inter frames, keyframe "
+          f"{def_s[0]:.4f} s [{card}]", flush=True)
+
+    # -- K5 vs plain at 1080p (the keyframe and inter frame 1 of that
+    # encode), then K5's launch alone on every frame's inputs -------------
+    k5_plain_ms = []
+    for i in (0, 1):
+        a = k5_inputs[i]
+        k5_vs_plain(torch, f"1080p default-feature frame {i}", a[0], a[1],
+                    a[2:], {}, err, k5_plain_ms)
+    print(f"K5 vs plain on 1080p default-feature frames 0 (key) and 1 "
+          f"(inter): all six outputs exact; plain {k5_plain_ms[0]:.1f} / "
+          f"{k5_plain_ms[1]:.1f} ms [{card}]", flush=True)
+    plain_ms["k5"] = k5_plain_ms
+    e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    k5_alone, k5_bounds, k5_steps = [], [], []
+    for a in k5_inputs:
+        (R5, C5, sy, su, sv, iy, iu, iv, mode, uv_mode, intra, d1, d2, du,
+         qidx, ext, bcost, rdm, rdd, top) = a
+        planes0, out0, intra_np, bpred_np = EW._frame_setup(
+            R5, C5, (sy, su, sv), (iy, iu, iv), mode, intra,
+            (d1, d2, du, qidx), ext, bcost, top)
+        params = EW.pack_encode_params(mode, uv_mode, intra, d1, d2, du, qidx)
+        rd = (bcost, rdm, rdd) if bcost is not None else (None,) * 3
+        ts = []
+        for _ in range(3):
+            pl = [x.clone() for x in planes0]
+            out = [x.clone() for x in out0]
+            torch.cuda.synchronize()
+            e0.record()
+            EW._k5_launch(R5, C5, pl, out, (sy, su, sv), params, rd,
+                          top is not None)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        k5_alone.append(statistics.median(ts))
+        # bytes: the intra flags and parameters of every MB, the sources
+        # and the neighbours' pixels of the intra MBs read once; their
+        # pixels, levels, eobs and B_PRED sub-modes written once. ops: ~40
+        # integer operations per intra MB pixel or coefficient (predict,
+        # transform, quantize, reconstruct), ~5 per pixel and sub-mode of a
+        # B_PRED MB's pick
+        ni, nb = int(intra_np.sum()), int(bpred_np.sum())
+        byts = R5 * C5 * EW.ENC_COLS * 4 + ni * (384 * 4 + 71 + 384
+                                                + 425 * 4) + nb * 16 * 4
+        ops = ni * 384 * 40 + nb * 256 * 10 * 5
+        k5_bounds.append((byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S))
+        k5_steps.append(k5_chain(np, R5, C5, intra_np))
+    k_ms["k5"] = statistics.mean(k5_alone)
+    k5_enc = [x.elapsed_time(y) for x, y in k5_events]
+    per_step = [round(a * 1e3 / b, 3) for a, b in zip(k5_alone[1:],
+                                                      k5_steps[1:])]
+    print(f"K5 encode_wavefront: {k_ms['k5']:.4f} ms/frame alone on each "
+          f"default-feature 1080p frame's inputs (keyframe "
+          f"{k5_alone[0]:.4f} ms, inter {[round(x, 4) for x in k5_alone[1:]]}"
+          f" ms; {statistics.mean(k5_enc):.4f} ms/frame by events in the "
+          f"encoder), 1 launch/frame; K5's chain of dependent MB steps "
+          f"{k5_steps[0]} on the keyframe, "
+          f"{k5_alone[0] * 1e3 / k5_steps[0]:.3f} us/step, inter "
+          f"{k5_steps[1:]}, {per_step} us/step; bound "
+          f"{max(k5_bounds[0]) * 1e3:.4f} ms (keyframe) [{card}]", flush=True)
+    del k5_inputs
 
     # -- timed split of the default-feature encode: the B_PRED decision
-    # candidate, the B_PRED lanes and the trellis, each synchronised ------
+    # candidate, the encode wavefront, K5 inside it and the trellis, each
+    # synchronised -------------------------------------------------------
     split, stages = [], {}
 
     def timed(fn, key):
@@ -1569,7 +1821,7 @@ def main():
         return wrapper
 
     probes = [(TE, "_bpred_rd", "bpred_decision"),
-              (EW, "_bpred_lanes", "bpred_lanes"),
+              (EW, "_k5_launch", "k5"),
               (TE, "_trellis_mbs", "trellis"),
               (EW, "encode_recon_planes", "encode_wavefront")]
     saved = [getattr(mod, attr) for mod, attr, _ in probes]
@@ -1590,12 +1842,12 @@ def main():
     for i, row in enumerate(split):
         print(f"default-feature split, frame {i}: " + ", ".join(
             f"{k} {row.get(k, 0.0):.4f} s" for k in (
-                "total", "bpred_decision", "encode_wavefront", "bpred_lanes",
+                "total", "bpred_decision", "encode_wavefront", "k5",
                 "trellis")) + f" [{card}]", flush=True)
 
     # -- multi-GPU: sharded decode and encode, GOP-parallel decode and
     # encode, the batch transcoder, on virtual shards of the one card ----
-    for name, count in multi_shard_phases(torch, np, card, src_frames,
+    for name, count in multi_shard_phases(torch, np, card, slice2_frames,
                                           slice2_payloads, err).items():
         launches[name] += count
 
@@ -1613,7 +1865,10 @@ def main():
              "lf_wavefront.cu", "libvpx_opencl_tpu/ops/pallas_wavefront.py"
              ":407", k2_bounds),
             ("k3", "sad_grid", "libvpx_opencl_tpu_torch/csrc/sad_grid.cu",
-             "libvpx_opencl_tpu/ops/me_pallas.py:48", k3_bounds)):
+             "libvpx_opencl_tpu/ops/me_pallas.py:48", k3_bounds),
+            ("k5", "encode_wavefront", "libvpx_opencl_tpu_torch/csrc/"
+             "encode_wavefront.cu", "libvpx_opencl_tpu/models/wavefront.py"
+             ":253", k5_bounds)):
         b_ms, b_by = bound(bs)
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -54,11 +54,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "intra_pred.cuh"
 #include "rowlag.cuh"
 
 namespace {
 
-constexpr int kBPred = 4;
 // blocks per launch: one per MB row, up to this many (more rows are
 // taken by the same blocks in turn)
 constexpr int kMaxBlocks = 1024;
@@ -67,70 +67,6 @@ constexpr int kMaxCols = 1024;
 // 256 workers (one luma pixel each) and the publisher warp (rowlag.cuh)
 constexpr int kWorkers = 256;
 constexpr int kThreads = kWorkers + 32;
-
-__device__ __forceinline__ int clamp255(int v) {
-  return v < 0 ? 0 : (v > 255 ? 255 : v);
-}
-__device__ __forceinline__ int e3(int a, int b, int c) {
-  return (a + 2 * b + c + 2) >> 2;
-}
-__device__ __forceinline__ int h2(int a, int b) { return (a + b + 1) >> 1; }
-
-// B_PRED sub-modes B_VE..B_HU (2-9): pixel (i,j) of a 4x4 sub-block is
-// e3 (op 0) or h2 (op 1) of E[m], E[m+1] (, E[m+2]) over the edge vector
-// E = L3 L2 L1 L0 tl A0..A7 (reconintra4x4.c), indices clamped to [0,12];
-// the entry is op << 4 | (m + 1), row-major over (i,j).
-__constant__ unsigned char kBCode[8][16] = {
-    {5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7, 8, 5, 6, 7, 8},
-    {3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 0, 0, 0, 0},
-    {6, 7, 8, 9, 7, 8, 9, 10, 8, 9, 10, 11, 9, 10, 11, 12},
-    {4, 5, 6, 7, 3, 4, 5, 6, 2, 3, 4, 5, 1, 2, 3, 4},
-    {21, 22, 23, 24, 4, 5, 6, 7, 3, 21, 22, 23, 2, 4, 5, 6},
-    {22, 23, 24, 25, 6, 7, 8, 9, 23, 24, 25, 10, 7, 8, 9, 11},
-    {20, 4, 5, 6, 19, 3, 20, 4, 18, 2, 19, 3, 17, 1, 18, 2},
-    {19, 2, 18, 1, 18, 1, 17, 0, 17, 0, 16, 16, 16, 16, 16, 16}};
-
-// The B_PRED workspace: row 0 holds the top-left, above and above-right
-// pixels, column 0 the left ones, cell (1+y, 1+x) pixel (y, x) of the MB.
-typedef int Ws[17][21];
-
-// E[k] of sub-block (ir, ic), k clamped to [0, 12].
-__device__ __forceinline__ int edge_px(const Ws& ws, int ir, int ic, int k) {
-  k = k < 0 ? 0 : (k > 12 ? 12 : k);
-  return k < 4 ? ws[4 * ir + 4 - k][4 * ic] : ws[4 * ir][4 * ic + k - 4];
-}
-
-// One pixel (i, j) of sub-block (ir, ic) under sub-mode `mode`
-// (vp8_intra4x4_predict_c).
-__device__ __forceinline__ int bpred_pixel(int mode, const Ws& ws, int ir,
-                                           int ic, int i, int j) {
-  auto E = [&](int k) { return edge_px(ws, ir, ic, k); };
-  if (mode == 0)  // B_DC
-    return (E(0) + E(1) + E(2) + E(3) + E(5) + E(6) + E(7) + E(8) + 4) >> 3;
-  if (mode == 1)  // B_TM
-    return clamp255(E(3 - i) + E(5 + j) - E(4));
-  const int code = kBCode[mode - 2][4 * i + j];
-  const int m = (code & 15) - 1;
-  return (code >> 4) ? h2(E(m), E(m + 1)) : e3(E(m), E(m + 1), E(m + 2));
-}
-
-// 16x16 / 8x8 prediction (reconintra.c), mode clipped to DC/V/H/TM.
-__device__ int pred_pixel(int mode, const int* above, const int* left,
-                          int tl, bool up, bool lf, int n, int log2n,
-                          int py, int px) {
-  mode = mode < 0 ? 0 : (mode > 3 ? 3 : mode);
-  if (mode == 1) return above[px];
-  if (mode == 2) return left[py];
-  if (mode == 3) return clamp255(left[py] + above[px] - tl);
-  if (!up && !lf) return 128;
-  int total = 0;
-  if (up)
-    for (int k = 0; k < n; ++k) total += above[k];
-  if (lf)
-    for (int k = 0; k < n; ++k) total += left[k];
-  int shift = log2n - 1 + (up ? 1 : 0) + (lf ? 1 : 0);
-  return (total + (1 << (shift - 1))) >> shift;
-}
 
 // What a block loads for one MB before it may run it; nothing here depends
 // on another row, so the block loads it for MB c+1 while it runs MB c.

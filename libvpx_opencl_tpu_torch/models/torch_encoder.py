@@ -373,8 +373,8 @@ def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
                    row_off=0, top=None):
     """Program B: MC predictions (per-MB reference selection), the trellis
     on the inter MBs (use_trellis: SpeedFeatures.trellis), then the encode
-    wavefront, whose B_PRED lanes run when bmode_cost is given (the
-    caller passes None on frames without a B_PRED MB). The JAX function
+    wavefront (one K5 launch on the card), whose B_PRED MBs read
+    bmode_cost (the caller passes None on frames without a B_PRED MB). The JAX function
     runs the trellis on every MB and keeps it for the inter ones; each
     block's result depends only on its own MB, so running it on the inter
     MBs alone gives the same levels. A row shard passes row_off (the frame

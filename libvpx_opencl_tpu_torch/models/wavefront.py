@@ -1,5 +1,5 @@
-"""Encode wavefront (PyTorch): predict -> FDCT/WHT -> quant -> decoder-exact
-reconstruction, for every macroblock of a frame.
+"""Encode wavefront (PyTorch + CUDA): predict -> FDCT/WHT -> quant ->
+decoder-exact reconstruction, for every macroblock of a frame.
 
 Port of libvpx_opencl_tpu/models/wavefront.py:encode_recon_blocks, with its
 B_PRED lanes and its externally optimized (trellis) coefficients. Intra
@@ -9,24 +9,31 @@ will (decodframe.c residual path).
 
 Layout and schedule are the port's own. The JAX function keeps the frame
 in diagonal-major block stores and sends every MB, inter ones too, through
-a scan over the offset-2 diagonals 2r+c, because that suits XLA on a TPU.
-Here the frame lives in zero-bordered raster uint8 planes (as for K1/K2,
-ops/wavefront.py). An inter MB's prediction does not depend on its
-neighbours, so all inter MBs are transformed, quantized (or take the
+a scan over the offset-2 diagonals 2r+c (one XLA program per frame, no
+Pallas kernel). Here the frame lives in zero-bordered raster uint8 planes
+(as for K1/K2, ops/wavefront.py). An inter MB's prediction does not depend
+on its neighbours, so all inter MBs are transformed, quantized (or take the
 trellis levels the caller passes) and reconstructed in one batch first. A
 16x16 / 8x8 intra prediction reads the MB's left, above and above-left
 neighbours, and a B_PRED MB's sub-blocks also read the above-right MB's
-bottom row; an intra MB waits only for those of its neighbours that are
-intra themselves. The intra MBs are walked in dependency levels
-(`intra_levels`), each level one batch, and the level's B_PRED MBs go
-through the 16-step sub-block recursion together (`_bpred_lanes`). A
-keyframe has R + C - 1 levels, an inter frame as many as its longest chain
-of dependent intra MBs. The outputs equal the JAX function's.
+bottom row. Then:
 
-This stage is plain tensor code in the JAX package too (an XLA scan, not a
-Pallas kernel). One level costs several hundred small tensor ops, and a
-level with B_PRED MBs 16 sequential sub-block steps more, so a keyframe is
-slow at large sizes.
+  * on the card, one launch of K5 (csrc/encode_wavefront.cu) encodes every
+    intra MB: MB rows in start order, MB (r,c) once row r-1 has finished
+    min(c+2, C) MBs, as K1 does (`encode_recon_planes`);
+  * the plain version (`_encode_planes_plain`, any device; the wrapper's
+    choice for CPU tensors) walks the intra MBs in dependency levels
+    (`intra_levels`): an intra MB waits only for those of its neighbours
+    that are intra themselves, each level is one batch through
+    `_encode_mb_step`, and the level's B_PRED MBs go through the 16-step
+    sub-block recursion together (`_bpred_lanes`). A keyframe has R + C - 1
+    levels, an inter frame as many as its longest chain of dependent intra
+    MBs, and a level costs several hundred small tensor ops.
+
+Both give the JAX function's outputs; tests/test_torch_encode_rowlag.py
+shows that every lag-2 row order of `_encode_mb_step` gives the level
+batches' result, and that K5's diagonal sub-block order gives the raster
+one's.
 """
 from __future__ import annotations
 
@@ -39,6 +46,9 @@ from ..ops import predict as P
 from ..ops import rd_device as RD
 from ..ops import transforms as tf
 from ..ops import wavefront as W
+
+#: columns of K5's per-MB parameter rows (pack_encode_params)
+ENC_COLS = 10
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,8 +151,16 @@ def transform_quant_recon(src_y, src_u, src_v, pred_y, pred_u, pred_v,
                                       dq_y1, dq_y2, dq_uv)
 
 
+#: the order in which K5 runs a B_PRED MB's sub-blocks: the 10 diagonals
+#: 2*ir + ic, top row first within one (a sub-block reads only its left,
+#: above and above-right neighbours, so any such order gives the raster
+#: order's result)
+BPRED_DIAG_ORDER = tuple(4 * ir + d - 2 * ir for d in range(10)
+                         for ir in range(4) if 0 <= d - 2 * ir <= 3)
+
+
 def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
-                 rddiv, top_interior=False):
+                 rddiv, top_interior=False, order=range(16)):
     """B_PRED luma of M MBs (r, c) whose neighbours are reconstructed in
     `plane`: the 16-step sub-block recursion over a [M,17,21] workspace
     (row 0 = top-left, above and above-right; column 0 = left; rows 4, 8,
@@ -150,7 +168,9 @@ def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
     the ten sub-modes, picks the one of least rdc(mode cost, prediction
     SSE) (first on ties: pick_intra4x4mby_modes's fast pick), then
     transforms, quantizes (from position 0), dequantizes and reconstructs
-    the winner into the workspace.
+    the winner into the workspace. `order`: the sub-blocks' order, raster
+    (k = 0..15) or any order that keeps their dependencies, such as
+    BPRED_DIAG_ORDER.
     Returns (qcoeff [M,16,16], eobs [M,16], rec [M,16,16], bmodes [M,16]),
     int32; eobs count from position 0 and are not clamped."""
     m = r.shape[0]
@@ -169,7 +189,7 @@ def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
     e = torch.zeros(m, 16, dtype=torch.int32, device=dev)
     bmodes = torch.zeros(m, 16, dtype=torch.int32, device=dev)
     lanes = torch.arange(m, device=dev)
-    for k in range(16):
+    for k in order:
         ir, ic = k >> 2, k & 3
         preds = P.bpred_4x4_all(ws[:, 4 * ir, 1 + 4 * ic:9 + 4 * ic],
                                 ws[:, 1 + 4 * ir:5 + 4 * ir, 4 * ic],
@@ -190,6 +210,180 @@ def _bpred_lanes(plane, C, r, c, src_y, dq_y1, qidx, bmode_cost, rdmult,
     return q, e, ws[:, 1:17, 1:17], bmodes
 
 
+def _put_mbs(planes, out, idx, q, e, rec, r, c):
+    """Write M encoded MBs: their levels and eobs into `out` (qcoeff,
+    eobs, bmodes) and their reconstruction into the planes."""
+    out[0][idx] = q
+    out[1][idx] = e
+    for plane, n, blk in zip(planes, (16, 8, 8), rec):
+        b = W.BORDER if n == 16 else W.BORDER // 2
+        W._put_blocks(plane, b + r * n, b + c * n, blk)
+
+
+def _frame_setup(R, C, srcs, inters, mode, intra, dqs, ext, bmode_cost,
+                 top):
+    """What both versions do first: zeroed outputs and planes, `top` in
+    the planes' border row -1, and every inter MB transformed, quantized
+    (or given the levels `ext`) and reconstructed in one batch. Returns
+    (planes, (qcoeff, eobs, bmodes), intra_np, bpred_np)."""
+    N = R * C
+    dev = srcs[0].device
+    out = (torch.zeros(N, 25, 16, dtype=torch.int32, device=dev),
+           torch.zeros(N, 25, dtype=torch.int32, device=dev),
+           torch.zeros(N, 16, dtype=torch.int32, device=dev))
+    planes = tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
+                   for shape in W.plane_shapes(R, C))
+    if top is not None:
+        for plane, b, row in zip(planes, (W.BORDER, W.BORDER // 2,
+                                          W.BORDER // 2), top):
+            plane[b - 1] = row
+    # the inter batch is chosen on the host: one small copy, which also
+    # says which intra MBs are B_PRED
+    ib = intra.bool()
+    flags = ib.to(torch.uint8) | (((mode == W.B_PRED_M) & ib)
+                                  .to(torch.uint8) << 1)
+    flags = flags.cpu().numpy()
+    intra_np, bpred_np = (flags & 1) > 0, (flags & 2) > 0
+    if bpred_np.any() and bmode_cost is None:
+        raise ValueError("B_PRED macroblocks need bmode_cost, rdmult and "
+                         "rddiv")
+    inter_idx = torch.from_numpy(np.flatnonzero(~intra_np)).to(dev)
+    if inter_idx.shape[0]:
+        q, e, *rec = transform_quant_recon(
+            *(s[inter_idx] for s in srcs), *(p[inter_idx] for p in inters),
+            *(t[inter_idx] for t in dqs), ext=ext)
+        _put_mbs(planes, out, inter_idx, q, e, rec, inter_idx // C,
+                 inter_idx % C)
+    return planes, out, intra_np, bpred_np
+
+
+def _encode_mb_step(C, planes, out, srcs, dqs, mode, uv_mode, idx, nb,
+                    bmode_cost=None, rdmult=None, rddiv=None,
+                    top_interior=False):
+    """Encode the intra MBs `idx` ([M] MB indices on the planes' device,
+    the last `nb` of them B_PRED) in place: their rows of `out` (qcoeff,
+    eobs, bmodes) and their pixels in the planes. Every MB they read must
+    be done, and none may read another's pixels (any device)."""
+    r, c = idx // C, idx % C
+    up, lf = (r > 0) | top_interior, c > 0
+    preds = []
+    for plane, n, b, md in zip(planes, (16, 8, 8),
+                               (W.BORDER, W.BORDER // 2, W.BORDER // 2),
+                               (mode, uv_mode, uv_mode)):
+        _, _, above, left, tl = W._edges(plane, b, n, r, c, top_interior)
+        preds.append(P.pred_nxn(md[idx], above, left, tl, up, lf, n))
+    q, e, *rec = transform_quant_recon(*(s[idx] for s in srcs), *preds,
+                                       *(t[idx] for t in dqs))
+    if nb:
+        # B_PRED MBs: Y from the sub-block recursion, no Y2 block, chroma
+        # from the batch above
+        k = idx.shape[0] - nb
+        bi = idx[k:]
+        qb, eb, rec_b, bm = _bpred_lanes(
+            planes[0], C, r[k:], c[k:], srcs[0][bi], dqs[0][bi], dqs[3][bi],
+            bmode_cost, rdmult, rddiv, top_interior)
+        rec[0][k:] = rec_b
+        out[2][bi] = bm
+        q[k:, :16] = qb
+        q[k:, 24] = 0
+        e[k:, :16] = eb
+        e[k:, 24] = 0
+    _put_mbs(planes, out, idx, q, e, rec, r, c)
+
+
+def _encode_planes_plain(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
+                         inter_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv,
+                         qidx, ext=None, bmode_cost=None, rdmult=None,
+                         rddiv=None, top=None):
+    """Plain PyTorch version of `encode_recon_planes` (any device): the
+    intra MBs in dependency levels, one batch per level."""
+    srcs = (src_y_b, src_u_b, src_v_b)
+    dqs = (dq_y1, dq_y2, dq_uv, qidx)
+    planes, out, intra_np, bpred_np = _frame_setup(
+        R, C, srcs, (inter_y, inter_u, inter_v), mode, intra, dqs, ext,
+        bmode_cost, top)
+    if intra_np.any():
+        # intra MBs sorted by level, a level's B_PRED MBs last, uploaded
+        # once; each level is a slice and its B_PRED MBs the slice's tail
+        # (no boolean masks: they would read sizes back from the card)
+        lvl = intra_levels(R, C, intra_np, bpred_np)
+        intra_idx = np.flatnonzero(intra_np)
+        by_level = intra_idx[np.lexsort((bpred_np[intra_idx],
+                                         lvl[intra_idx]))]
+        order = torch.from_numpy(by_level).to(src_y_b.device)
+        ends = np.cumsum(np.bincount(lvl[intra_idx]))
+        n_bp = np.bincount(lvl[intra_idx], weights=bpred_np[intra_idx],
+                           minlength=len(ends)).astype(np.int64)
+        for start, end, nb in zip(np.concatenate([[0], ends[:-1]]), ends,
+                                  n_bp):
+            _encode_mb_step(C, planes, out, srcs, dqs, mode, uv_mode,
+                            order[start:end], int(nb), bmode_cost, rdmult,
+                            rddiv, top is not None)
+    return out[:2] + planes + out[2:]
+
+
+def pack_encode_params(mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx):
+    """[N, ENC_COLS] int32 rows for K5: mode, uv_mode, intra, qidx, dq_y1
+    (dc, ac), dq_y2, dq_uv (made on their device: no host read)."""
+    cols = (mode[:, None], uv_mode[:, None], intra.bool()[:, None],
+            qidx[:, None], dq_y1, dq_y2, dq_uv)
+    return torch.cat([x.to(torch.int32) for x in cols], 1).contiguous()
+
+
+def _encode_planes_cuda(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
+                        inter_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv,
+                        qidx, ext, bmode_cost, rdmult, rddiv, top):
+    """`encode_recon_planes` on the card: the inter batch, then one K5
+    launch for every intra MB."""
+    N = R * C
+    dev = src_y_b.device
+    if C > W.MAX_COLS:
+        raise ValueError(f"K5 takes at most {W.MAX_COLS} MB columns, got {C}")
+    # read by the kernel as they are
+    read = [("src_y", src_y_b, torch.int32, (N, 16, 16)),
+            ("src_u", src_u_b, torch.int32, (N, 8, 8)),
+            ("src_v", src_v_b, torch.int32, (N, 8, 8))]
+    if bmode_cost is not None:
+        read += [("bmode_cost", bmode_cost, torch.int32, (10,)),
+                 ("rdmult", rdmult, torch.float32, ()),
+                 ("rddiv", rddiv, torch.float32, ())]
+    for name, t, dtype, shape in read:
+        if not isinstance(t, torch.Tensor) or t.device != dev or \
+                t.dtype != dtype or tuple(t.shape) != shape or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {dev}")
+    # packed on the card by pack_encode_params
+    for name, t, shape in (("mode", mode, (N,)), ("uv_mode", uv_mode, (N,)),
+                           ("intra", intra, (N,)), ("qidx", qidx, (N,)),
+                           ("dq_y1", dq_y1, (N, 2)), ("dq_y2", dq_y2, (N, 2)),
+                           ("dq_uv", dq_uv, (N, 2))):
+        if t.device != dev or tuple(t.shape) != shape or \
+                t.is_floating_point() or t.is_complex():
+            raise ValueError(f"{name} must be an integer {shape} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    srcs = (src_y_b, src_u_b, src_v_b)
+    planes, out, _, _ = _frame_setup(
+        R, C, srcs, (inter_y, inter_u, inter_v), mode, intra,
+        (dq_y1, dq_y2, dq_uv, qidx), ext, bmode_cost, top)
+    rd = (None,) * 3 if bmode_cost is None else (bmode_cost, rdmult, rddiv)
+    params = pack_encode_params(mode, uv_mode, intra, dq_y1, dq_y2, dq_uv,
+                                qidx)
+    _k5_launch(R, C, planes, out, srcs, params, rd, top is not None)
+    return out[:2] + planes + out[2:]
+
+
+def _k5_launch(R, C, planes, out, srcs, params, rd, top_interior):
+    """One K5 launch, in place on the planes and on `out` (qcoeff, eobs,
+    bmodes), which hold the inter MBs already; rd: (bmode_cost, rdmult,
+    rddiv) tensors, or Nones on a frame without B_PRED MBs."""
+    W._launch("encode_wavefront", R, planes,
+              *(t.data_ptr() for t in srcs), params.data_ptr(),
+              *(None if x is None else x.data_ptr() for x in rd), R, C,
+              int(bool(top_interior)), *(t.data_ptr() for t in out))
+
+
 def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
                         inter_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv,
                         qidx, ext=None, bmode_cost=None, rdmult=None,
@@ -203,84 +397,21 @@ def encode_recon_planes(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,
     Returns (qcoeff [N,25,16] i32, eobs [N,25] i32, y, u, v, bmodes [N,16]
     i32): the reconstruction as fresh zero-bordered uint8 planes
     (ops/wavefront.py layout), not yet loop-filtered (with `top`, border
-    row -1 holds it)."""
-    N = R * C
-    dev = src_y_b.device
-    srcs = (src_y_b, src_u_b, src_v_b)
-    dqs = (dq_y1, dq_y2, dq_uv, qidx)
-    qcoeff = torch.zeros(N, 25, 16, dtype=torch.int32, device=dev)
-    eobs = torch.zeros(N, 25, dtype=torch.int32, device=dev)
-    bmodes = torch.zeros(N, 16, dtype=torch.int32, device=dev)
-    planes = tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
-                   for shape in W.plane_shapes(R, C))
-    top_interior = top is not None
-    if top_interior:
-        for plane, b, row in zip(planes, (W.BORDER, W.BORDER // 2,
-                                          W.BORDER // 2), top):
-            plane[b - 1] = row
-    # the wavefront's shape is decided on the host: one small copy
-    intra_np = intra.cpu().numpy().astype(bool)
-    bpred_np = intra_np & (mode.cpu().numpy() == W.B_PRED_M)
-    if bpred_np.any() and bmode_cost is None:
-        raise ValueError("B_PRED macroblocks need bmode_cost, rdmult and "
-                         "rddiv")
+    row -1 holds it).
 
-    def put(idx, q, e, rec, r, c):
-        qcoeff[idx] = q
-        eobs[idx] = e
-        for plane, n, blk in zip(planes, (16, 8, 8), rec):
-            W.mb_view(plane, R, C, n)[r, c] = blk.to(torch.uint8)
-
-    inter_idx = torch.from_numpy(np.flatnonzero(~intra_np)).to(dev)
-    if inter_idx.shape[0]:
-        q, e, *rec = transform_quant_recon(
-            *(s[inter_idx] for s in srcs), inter_y[inter_idx],
-            inter_u[inter_idx], inter_v[inter_idx],
-            *(t[inter_idx] for t in dqs), ext=ext)
-        put(inter_idx, q, e, rec, inter_idx // C, inter_idx % C)
-    if intra_np.any():
-        # intra MBs sorted by level, a level's B_PRED MBs last, uploaded
-        # once; each level is a slice and its B_PRED MBs the slice's tail
-        # (no boolean masks: they would read sizes back from the card)
-        lvl = intra_levels(R, C, intra_np, bpred_np)
-        intra_idx = np.flatnonzero(intra_np)
-        by_level = intra_idx[np.lexsort((bpred_np[intra_idx],
-                                         lvl[intra_idx]))]
-        order = torch.from_numpy(by_level).to(dev)
-        ends = np.cumsum(np.bincount(lvl[intra_idx]))
-        n_bp = np.bincount(lvl[intra_idx], weights=bpred_np[intra_idx],
-                           minlength=len(ends)).astype(np.int64)
-        for start, end, nb in zip(np.concatenate([[0], ends[:-1]]), ends,
-                                  n_bp):
-            idx = order[start:end]
-            r, c = idx // C, idx % C
-            up, lf = (r > 0) | top_interior, c > 0
-            preds = []
-            for plane, n, b, md in zip(planes, (16, 8, 8),
-                                       (W.BORDER, W.BORDER // 2,
-                                        W.BORDER // 2),
-                                       (mode, uv_mode, uv_mode)):
-                _, _, above, left, tl = W._edges(plane, b, n, r, c,
-                                                 top_interior)
-                preds.append(P.pred_nxn(md[idx], above, left, tl, up, lf, n))
-            q, e, *rec = transform_quant_recon(
-                *(s[idx] for s in srcs), *preds, *(t[idx] for t in dqs))
-            if nb:
-                # B_PRED MBs: Y from the sub-block recursion, no Y2 block,
-                # chroma from the batch above
-                k = end - start - nb
-                bi = idx[k:]
-                qb, eb, rec_b, bm = _bpred_lanes(
-                    planes[0], C, r[k:], c[k:], src_y_b[bi], dq_y1[bi],
-                    qidx[bi], bmode_cost, rdmult, rddiv, top_interior)
-                rec[0][k:] = rec_b
-                bmodes[bi] = bm
-                q[k:, :16] = qb
-                q[k:, 24] = 0
-                e[k:, :16] = eb
-                e[k:, 24] = 0
-            put(idx, q, e, rec, r, c)
-    return (qcoeff, eobs) + planes + (bmodes,)
+    CUDA tensors: the inter batch, then one launch of
+    csrc/encode_wavefront.cu (K5) for the intra MBs, counted in
+    launches["encode_wavefront"]; the int32 source blocks must be
+    contiguous, and bmode_cost (when given) an int32 [10] tensor and
+    rdmult/rddiv float32 scalar tensors on the card, as TorchEncoder holds
+    them. CPU tensors: the plain version, `_encode_planes_plain`."""
+    args = (R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u, inter_v, mode,
+            uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx, ext, bmode_cost,
+            rdmult, rddiv, top)
+    if W._all_on_cpu(src_y_b, src_u_b, src_v_b, inter_y, inter_u, inter_v,
+                     mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx):
+        return _encode_planes_plain(*args)
+    return _encode_planes_cuda(*args)
 
 
 def encode_recon_blocks(R, C, src_y_b, src_u_b, src_v_b, inter_y, inter_u,

@@ -41,6 +41,9 @@ KERNELS = {
     "detokenize": ("detokenize.cu", "detokenize",
                    [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                     _I, _I, _VP]),
+    "encode_wavefront": ("encode_wavefront.cu", "encode_wavefront",
+                         [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                          _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP]),
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its
