@@ -29,6 +29,9 @@ code != 0). It prints, in order:
     3x3, 1x5, 5x1 (C = 1), 2x2, 1x1 and 8x40, qindex 4, 24, 47, 48 and
     127, intra and B_PRED shares up to all-B_PRED, a random top border row
     (top_interior) on half of them: all six outputs exact;
+  * K6 (the trellis) vs its plain version on random MBs (trellis_case) at
+    Ni = 1, 31 and 8160 inter MBs, qindex 0, 4, 24, 63 and 127, levels up
+    to 2047 (cat6), all-zero and eob-16 blocks: levels and eobs exact;
   * the 1080p decode: MD5 of every frame; K1 launched once per frame, K2
     once per frame with a filter level;
   * the six extra streams' MD5 results;
@@ -58,8 +61,9 @@ code != 0). It prints, in order:
     the CPU;
   * a QCIF clip encoded under SLICE2_SF on the card and on the CPU:
     payload bytes equal;
-  * the 1080p encode under SLICE2_SF: bytes, luma PSNR, K3/K2/K5 launches
-    per frame (K3 once per reference searched, K2 and K5 once), the payload
+  * the 1080p encode under SLICE2_SF: bytes, luma PSNR, K3/K2/K5/K6
+    launches per frame (K3 once per reference searched, K2 and K5 once, K6
+    never: the trellis is off), the payload
     decoded by TorchDecoder on the card equal to the encoder's
     reconstruction;
     full_search through K3 equal to full_search through the plain version
@@ -72,18 +76,23 @@ code != 0). It prints, in order:
   * at the default speed features: the QCIF clip's payloads, and the
     packets of the port's CodecEncoder, equal on the card and the CPU;
   * the 1080p encode (1 key + 9 inter) at the default speed features with
-    the same gates (K5 once per frame):
-    per frame its bytes beside the SLICE2_SF bytes, intra and B_PRED MBs,
-    inter MBs the trellis ran on, the plain version's dependency levels,
-    its seconds and K5's time by CUDA events in the encoder; frames/s;
+    the same gates (K5 once per frame, K6 once per inter frame with inter
+    MBs and never on the keyframe) and each frame's bytes equal to
+    DEFAULT_BYTES: per frame its bytes beside the SLICE2_SF bytes, intra
+    and B_PRED MBs, inter MBs the trellis ran on, the plain version's
+    dependency levels, its seconds and K5's and K6's times by CUDA events
+    in the encoder; frames/s;
     then K5 vs plain on that encode's keyframe and inter frame 1 (all six
     outputs exact; the plain version's time) and K5's launch alone on
     every frame's inputs (CUDA events, median of 3, after the inter batch)
     with its chain of dependent MB steps, its us per step and its bound;
-    then a
+    K6 vs plain on the trellis inputs of inter frames 1 and 2 (levels and
+    eobs exact; the plain version's time) and K6's launch alone on every
+    inter frame's inputs (CUDA events, median of 3) with its bound; then a
     second encode of the first two frames timing the B_PRED decision
-    candidate, the encode wavefront, K5 inside it and the trellis, each
-    synchronised;
+    candidate, the encode wavefront, K5 inside it and the trellis (K6
+    through its wrapper), each synchronised, with K6's time beside the
+    trellis stage's and the encode's frames/s;
   * the multi-GPU drivers on virtual row shards of the one card
     (`multi_shard_phases`): K1 and K2 with top_interior vs their plain
     versions at 17 x 120 and 3 x 5 (exact); ShardedTorchDecoder on the
@@ -93,10 +102,10 @@ code != 0). It prints, in order:
     decode_streams with 2 groups x 2 shards on inter_cif and part4_cif;
     ShardedTorchEncoder at 4 shards under SLICE2_SF, its payloads equal to
     the SLICE2_SF phase's, K3 once per reference per shard, K5 once per
-    shard; encode_gops at 1080p, 2 groups x 2 frames, equal to a
-    sequential encode with the same keyframes, K5 once per frame; the
-    BatchTranscoder on two QCIF jobs with resume, equal to a sequential
-    transcode;
+    shard, K6 never; encode_gops at 1080p, 2 groups x 2 frames, equal to a
+    sequential encode with the same keyframes, K5 once per frame, K6
+    never; the BatchTranscoder on two QCIF jobs with resume (default
+    features: K6 on their inter frames), equal to a sequential transcode;
   * K4, the device detokenizer (`entropy_phases`): its main path,
     tools/bench_entropy_torch.py over all 30 frames of bench_1080p (the
     host decoder's entropy layer; K4 through its wrapper once per frame,
@@ -109,7 +118,7 @@ code != 0). It prints, in order:
     events, ns per dependent bool read, the bytes bound; then
     `python3 bench_torch.py` as a subprocess (BENCH_RUNS=3), its JSON line
     bit-exact, its fps beside the card's name and power limit;
-  * one JSON line {"kernels": [...]} (K1-K5) and, last, {"ok": true,
+  * one JSON line {"kernels": [...]} (K1-K6) and, last, {"ok": true,
     "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
@@ -138,6 +147,15 @@ SPLIT_FRAMES = 2
 K5_GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (2, 2), (1, 1), (8, 40)]
 K5_QINDEX = [4, 24, 47, 48, 127]
 K5_SHARES = [(1.0, 1.0), (0.7, 0.5), (1.0, 0.0), (0.5, 0.3)]
+# K6 vs plain on random MBs: inter MB counts (8160: every MB of a 1080p
+# frame) and qindex values from the smallest quantizer to the largest
+K6_NI = [1, 31, 8160]
+K6_QINDEX = [0, 4, 24, 63, 127]
+# bytes per frame of the default-feature 1080p encode of frames 0-9 at
+# qindex 24: the encode is deterministic, and the trellis's levels decide
+# every inter frame's bytes
+DEFAULT_BYTES = [422252, 297031, 289888, 293468, 348510, 291138, 340120,
+                 282933, 342811, 281112]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -211,6 +229,44 @@ def encode_case(np, rng, R, C, qindex, intra_share, bpred_share, with_top):
         kw["top"] = [rng.integers(0, 256, shape[1]).astype(np.uint8)
                      for shape in W.plane_shapes(R, C)]
     return args, kw
+
+
+def trellis_case(np, rng, ni, qindex):
+    """Random inputs of the trellis (numpy) for `ni` inter MBs at qindex's
+    quantizer and RD constants: levels of every size up to cat6 (|level|
+    up to 2047, so |coef| up to 2047 * dq), each coefficient within one dq
+    of its level times dq, both bounds included (so the one-step-toward-
+    zero candidate applies about half the time), sparse blocks, all-zero
+    blocks and blocks whose eob is 16; Y DC levels 0 (they travel in Y2);
+    e0 the levels' eobs with Y eobs at least 1, as
+    wavefront.transform_quant returns them. Returns
+    (coefs, q0, e0, dq_y1, dq_y2, dq_uv, rdmult, rddiv) as trellis_mbs
+    takes them."""
+    from libvpx_opencl_tpu_torch.models import rdopt
+    from libvpx_opencl_tpu_torch.models.refdec import dequant_factors
+    from libvpx_opencl_tpu_torch.ops import tables as T
+    dqs = [np.tile(np.asarray(d, np.int32), (ni, 1))
+           for d in dequant_factors(qindex, 0, 0, 0, 0, 0)]
+    dq = np.concatenate([np.repeat(dqs[0][:, None], 16, 1),
+                         np.repeat(dqs[2][:, None], 8, 1), dqs[1][:, None]], 1)
+    dqv = np.concatenate([dq[..., :1], np.repeat(dq[..., 1:], 15, -1)], -1)
+    shape = (ni, 25, 16)
+    size = rng.random(shape)
+    lvl = np.where(size < 0.7, rng.integers(1, 4, shape),
+                   np.where(size < 0.93, rng.integers(4, 67, shape),
+                            rng.integers(67, 2048, shape)))
+    kind = rng.random((ni, 25, 1))
+    keep = np.where(kind < 0.1, False, np.where(
+        kind > 0.85, True, rng.random(shape) < rng.random((ni, 25, 1))))
+    q0 = np.where(keep, np.where(rng.random(shape) < 0.5, -lvl, lvl), 0)
+    q0[:, :16, 0] = 0
+    coefs = q0 * dqv + rng.integers(-dqv, dqv + 1)
+    scan = np.asarray(T.ZIGZAG, np.int64)
+    e0 = ((q0[..., scan] != 0) * np.arange(1, 17)).max(-1)
+    e0[:, :16] = np.maximum(e0[:, :16], 1)
+    rdm, rdd, _ = rdopt.rd_consts(qindex)
+    return ([a.astype(np.int32) for a in (coefs, q0, e0)] + dqs +
+            [np.float32(rdm), np.float32(rdd)])
 
 
 def max_abs_diff(torch, got, want):
@@ -629,6 +685,50 @@ def k5_phases(torch, np, err):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def k6_vs_plain(torch, label, args, err, plain_ms=None):
+    """K6 (trellis_mbs on the card) vs trellis_mbs_plain on the same
+    tensors: levels and eobs exact; the plain version timed when plain_ms
+    (a list) is given."""
+    from libvpx_opencl_tpu_torch.ops import rd_device as RD
+    got = RD.trellis_mbs(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = RD.trellis_mbs_plain(*args)
+    torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    d = max_abs_diff(torch, got, want)
+    err["trellis"] = max(err["trellis"], d)
+    if d:
+        bad = [n for n, g, w in zip(("qcoeff", "eobs"), got, want)
+               if not torch.equal(g, w)]
+        fail(f"K6 disagrees with trellis_mbs_plain at {label}: {bad}")
+    return got
+
+
+def k6_phases(torch, np, err):
+    """K6 vs its plain version on random MBs (trellis_case): each of K6_NI
+    at each of K6_QINDEX."""
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tcb = list(TE._tcb_tables(dev)[:3])
+    changed = 0
+    for ni in K6_NI:
+        for q in K6_QINDEX:
+            case = trellis_case(np, np.random.default_rng(6000 + ni + q), ni,
+                                q)
+            args = [torch.from_numpy(a).to(dev) for a in case[:6]] + tcb + [
+                torch.tensor(float(x), dtype=torch.float32, device=dev)
+                for x in case[6:]]
+            got = k6_vs_plain(torch, f"Ni {ni} q{q}", args, err)
+            changed += int((got[0] != args[1]).any(-1).sum())
+    print(f"K6 vs plain on random MBs (Ni {K6_NI}, qindex {K6_QINDEX}; "
+          f"levels up to 2047, all-zero and eob-16 blocks): levels and eobs "
+          f"exact, max_abs_diff {err['trellis']}; the trellis changed "
+          f"{changed} blocks ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     """The multi-GPU drivers on the one card, with virtual row shards
     (parallel/mesh.py puts shard i on card i % cards): K1/K2 with
@@ -797,6 +897,9 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
         k3.append(W.launches["sad_grid"] - before["sad_grid"])
         k5.append(W.launches["encode_wavefront"]
                   - before["encode_wavefront"])
+        if W.launches["trellis"] != before["trellis"]:
+            fail(f"ShardedTorchEncoder frame {i}: K6 launched under "
+                 f"SLICE2_SF (trellis off)")
         if payload != slice2_payloads[i]:
             fail(f"ShardedTorchEncoder 4 shards frame {i}: payload differs "
                  f"from the single-card SLICE2_SF encode")
@@ -831,9 +934,10 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     if par != seq:
         fail("encode_gops at 1080p differs from the sequential encode with "
              "the same keyframes")
-    if got["encode_wavefront"] != len(src_frames):
+    if got["encode_wavefront"] != len(src_frames) or got["trellis"]:
         fail(f"encode_gops: K5 launched {got['encode_wavefront']} times for "
-             f"{len(src_frames)} frames")
+             f"{len(src_frames)} frames, K6 {got['trellis']} times under "
+             f"SLICE2_SF")
     print(f"encode_gops 1080p, 2 groups x 2 frames under SLICE2_SF: == "
           f"sequential ({[len(p) for p in par]} bytes); {gop_s:.3f} s on 2 "
           f"threads vs {seq_s:.3f} s sequential; K3 launches "
@@ -871,7 +975,8 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
           f"transcode; resume leaves the checkpoint as it was "
           f"(frames per job: "
           f"{[v['frames'] for v in state['stats'].values()]}, K5 launches "
-          f"{got['encode_wavefront']})", flush=True)
+          f"{got['encode_wavefront']}, K6 launches {got['trellis']})",
+          flush=True)
     print(f"multi-shard phases: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     return total
@@ -1083,6 +1188,7 @@ def main():
     from libvpx_opencl_tpu_torch.ops import _cuda
     from libvpx_opencl_tpu_torch.ops import me as ME
     from libvpx_opencl_tpu_torch.ops import me_sad
+    from libvpx_opencl_tpu_torch.ops import rd_device as RD
     from libvpx_opencl_tpu_torch.ops import wavefront as W
     from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
     from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
@@ -1107,7 +1213,7 @@ def main():
 
     # -- K1 / K2 vs plain on random cases --------------------------------
     err = {"intra_wavefront": 0, "lf_wavefront": 0, "sad_grid": 0,
-           "encode_wavefront": 0}
+           "encode_wavefront": 0, "trellis": 0}
     for R, C in GEOMS:
         rng = np.random.default_rng(R * 1000 + C)
         args = to_dev(intra_case(np, rng, R, C))
@@ -1130,6 +1236,7 @@ def main():
             err["lf_wavefront"] = max(err["lf_wavefront"], d)
     torch.cuda.synchronize()
     k5_phases(torch, np, err)
+    k6_phases(torch, np, err)
 
     # -- main path: bench_1080p through the port's entry point -----------
     bench = os.path.join(VECTORS, "bench_1080p.ivf")
@@ -1485,6 +1592,7 @@ def main():
         k3 = W.launches["sad_grid"] - before["sad_grid"]
         k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
         k5 = W.launches["encode_wavefront"] - before["encode_wavefront"]
+        k6 = W.launches["trellis"] - before["trellis"]
         enc_launches["sad_grid"] += k3
         enc_launches["lf_wavefront"] += k2
         enc_launches["encode_wavefront"] += k5
@@ -1495,11 +1603,13 @@ def main():
         p = psnr(frame[0], recon[0])
         print(f"encode 1080p frame {i} ({'key' if i == 0 else 'inter'}): "
               f"{len(payload)} bytes, luma PSNR {p:.2f} dB, K3 launches "
-              f"{k3}, K2 launches {k2}, K5 launches {k5}", flush=True)
-        if k3 != want_k3 or k2 != 1 or k5 != 1:
+              f"{k3}, K2 launches {k2}, K5 launches {k5}, K6 launches {k6}",
+              flush=True)
+        if k3 != want_k3 or k2 != 1 or k5 != 1 or k6 != 0:
             fail(f"encode frame {i}: K3 launched {k3} times for {want_k3} "
                  f"references, K2 {k2} times for one loop filter, K5 {k5} "
-                 f"times for one encode wavefront")
+                 f"times for one encode wavefront, K6 {k6} times with the "
+                 f"trellis off")
         if not show or any(not np.array_equal(a, b)
                            for a, b in zip(planes, recon)):
             fail(f"encode frame {i}: the decoded payload differs from the "
@@ -1671,29 +1781,43 @@ def main():
             return type(x)(clone(v) for v in x)
         return x
 
-    # every frame's encode_recon_planes arguments are kept for the K5
-    # checks below, and K5's launch is timed by CUDA events in the encoder
+    # every frame's encode_recon_planes and _trellis_mbs arguments are
+    # kept for the K5 and K6 checks below, and K5's and K6's launches are
+    # timed by CUDA events in the encoder
     ew_fn, k5_fn = EW.encode_recon_planes, EW._k5_launch
-    k5_inputs, k5_events = [], []
+    tr_fn, k6_fn = TE._trellis_mbs, RD.k6_launch
+    k5_inputs, k5_events, k6_inputs, k6_events = [], [], [], []
 
     def keep_ew(*a):
         k5_inputs.append(clone(a))
         return ew_fn(*a)
 
-    def timed_k5(*a):
-        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
-        e0.record()
-        k5_fn(*a)
-        e1.record()
-        k5_events.append((e0, e1))
+    def keep_tr(*a):
+        k6_inputs.append(clone(a))
+        return tr_fn(*a)
+
+    def events_around(fn, events):
+        def call(*a):
+            e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            e0.record()
+            fn(*a)
+            e1.record()
+            events.append((e0, e1))
+        return call
+
+    def ms(ev):
+        return ev[0].elapsed_time(ev[1])
 
     for name in W.launches:
         W.launches[name] = 0
     enc = default_encoder()
     dec = TD.TorchDecoder(device="cuda")
-    def_launches = {"sad_grid": 0, "lf_wavefront": 0, "encode_wavefront": 0}
+    def_launches = {"sad_grid": 0, "lf_wavefront": 0, "encode_wavefront": 0,
+                    "trellis": 0}
     def_s = []
-    EW.encode_recon_planes, EW._k5_launch = keep_ew, timed_k5
+    EW.encode_recon_planes, EW._k5_launch = keep_ew, events_around(
+        k5_fn, k5_events)
+    TE._trellis_mbs, RD.k6_launch = keep_tr, events_around(k6_fn, k6_events)
     try:
         for i, frame in enumerate(src_frames[:DEFAULT_FRAMES]):
             want_k3 = refs_searched(enc) if i else 0
@@ -1707,28 +1831,37 @@ def main():
             k3 = W.launches["sad_grid"] - before["sad_grid"]
             k2 = W.launches["lf_wavefront"] - before["lf_wavefront"]
             k5 = W.launches["encode_wavefront"] - before["encode_wavefront"]
+            k6 = W.launches["trellis"] - before["trellis"]
             def_launches["sad_grid"] += k3
             def_launches["lf_wavefront"] += k2
             def_launches["encode_wavefront"] += k5
+            def_launches["trellis"] += k6
             show, planes = dec.decode_frame(payload)
             recon = enc.ref_last.visible()
             p = psnr(frame[0], recon[0])
             n_intra, n_bpred, levels = frame_shape(enc)
+            n_inter = enc.R * enc.C - n_intra
             print(f"encode 1080p default features frame {i} "
                   f"({'key' if i == 0 else 'inter'}): {len(payload)} bytes"
                   + (f" ({slice2_bytes[i]} under SLICE2_SF)"
                      if i < len(slice2_bytes) else "")
                   + f", luma PSNR {p:.2f} dB, intra MBs {n_intra}, B_PRED "
-                  f"MBs {n_bpred}, inter MBs through the trellis "
-                  f"{enc.R * enc.C - n_intra}, dependency levels {levels}, "
-                  f"{secs:.4f} s, K5 in the encoder "
-                  f"{k5_events[-1][0].elapsed_time(k5_events[-1][1]):.4f} ms"
-                  f", K3 launches {k3}, K2 launches {k2}, K5 launches {k5} "
-                  f"[{card}]", flush=True)
-            if k3 != want_k3 or k2 != 1 or k5 != 1:
+                  f"MBs {n_bpred}, inter MBs through the trellis {n_inter}, "
+                  f"dependency levels {levels}, {secs:.4f} s, K5 in the "
+                  f"encoder {ms(k5_events[-1]):.4f} ms"
+                  + (f", K6 in the encoder {ms(k6_events[-1]):.4f} ms"
+                     if k6 else "")
+                  + f", K3 launches {k3}, K2 launches {k2}, K5 launches {k5}"
+                  f", K6 launches {k6} [{card}]", flush=True)
+            want_k6 = 1 if i and n_inter else 0
+            if k3 != want_k3 or k2 != 1 or k5 != 1 or k6 != want_k6:
                 fail(f"default-feature encode frame {i}: K3 launched {k3} "
                      f"times for {want_k3} references, K2 {k2} times for one "
-                     f"loop filter, K5 {k5} times for one encode wavefront")
+                     f"loop filter, K5 {k5} times for one encode wavefront, "
+                     f"K6 {k6} times for {want_k6} trellis")
+            if len(payload) != DEFAULT_BYTES[i]:
+                fail(f"default-feature encode frame {i}: {len(payload)} "
+                     f"bytes, {DEFAULT_BYTES[i]} expected")
             if not show or any(not np.array_equal(a, b)
                                for a, b in zip(planes, recon)):
                 fail(f"default-feature encode frame {i}: the decoded payload "
@@ -1738,6 +1871,7 @@ def main():
                      f"dB < 30 dB")
     finally:
         EW.encode_recon_planes, EW._k5_launch = ew_fn, k5_fn
+        TE._trellis_mbs, RD.k6_launch = tr_fn, k6_fn
     for name, count in def_launches.items():
         launches[name] += count
     print(f"encode 1080p default features: "
@@ -1805,6 +1939,55 @@ def main():
           f"{max(k5_bounds[0]) * 1e3:.4f} ms (keyframe) [{card}]", flush=True)
     del k5_inputs
 
+    # -- K6 vs plain on that encode's inter frames 1 and 2, then K6's
+    # launch alone on every inter frame's inputs --------------------------
+    k6_plain_ms = []
+    for i in (0, 1):
+        k6_vs_plain(torch, f"1080p default-feature inter frame {i + 1}",
+                    k6_inputs[i], err, k6_plain_ms)
+    plain_ms["k6"] = k6_plain_ms
+    k6_alone, k6_bounds, k6_ni = [], [], []
+    for a in k6_inputs:
+        ins = RD.k6_inputs(*a)
+        out = (torch.empty_like(ins[0]), torch.empty_like(ins[2]))
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            e0.record()
+            RD.k6_launch(ins, out)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        k6_alone.append(statistics.median(ts))
+        # bytes: coefs, levels, eobs and dequantizers read once, levels and
+        # eobs written once, the tables once; ops: ~60 integer and float
+        # operations per backward step over the positions each block's
+        # eob needs (i0 = 1 for Y), ~16 per block to load, find the eob,
+        # walk forward and store
+        ni = a[0].shape[0]
+        k6_ni.append(ni)
+        byts = ni * (2 * 1600 + 100 + 24 + 1600 + 100) + \
+            (3 * 576 + 2 * RD._N_VALUES) * 4 + 8
+        first = torch.cat([torch.ones(16, dtype=torch.int32),
+                           torch.zeros(9, dtype=torch.int32)]).to(dev)
+        steps = int((a[2] - first).clamp(min=0).sum())
+        ops = steps * 60 + ni * 25 * 16
+        k6_bounds.append((byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S))
+    k_ms["k6"] = statistics.mean(k6_alone)
+    k6_enc = [ms(x) for x in k6_events]
+    print(f"K6 vs plain on 1080p default-feature inter frames 1 and 2: "
+          f"levels and eobs exact; plain {k6_plain_ms[0]:.1f} / "
+          f"{k6_plain_ms[1]:.1f} ms [{card}]", flush=True)
+    print(f"K6 trellis: {k_ms['k6']:.4f} ms/frame alone on each "
+          f"default-feature 1080p inter frame's inputs "
+          f"({[round(x, 4) for x in k6_alone]} ms at "
+          f"{k6_ni} inter MBs; {statistics.mean(k6_enc):.4f} ms/frame by "
+          f"events in the encoder), 1 launch/inter frame; bound "
+          f"{[round(max(b) * 1e3, 4) for b in k6_bounds]} ms by "
+          f"{'bytes' if k6_bounds[0][0] >= k6_bounds[0][1] else 'operations'}"
+          f" [{card}]", flush=True)
+    del k6_inputs
+
     # -- timed split of the default-feature encode: the B_PRED decision
     # candidate, the encode wavefront, K5 inside it and the trellis, each
     # synchronised -------------------------------------------------------
@@ -1844,6 +2027,12 @@ def main():
             f"{k} {row.get(k, 0.0):.4f} s" for k in (
                 "total", "bpred_decision", "encode_wavefront", "k5",
                 "trellis")) + f" [{card}]", flush=True)
+    print(f"K6 beside the encode: {k6_alone[0]:.4f} ms alone on inter frame "
+          f"1's inputs; the trellis stage (_trellis_mbs: K6 through its "
+          f"wrapper) {split[1]['trellis']:.4f} s of that frame's "
+          f"{split[1]['total']:.4f} s; the default-feature encode "
+          f"{(len(def_s) - 1) / sum(def_s[1:]):.4f} frames/s [{card}]",
+          flush=True)
 
     # -- multi-GPU: sharded decode and encode, GOP-parallel decode and
     # encode, the batch transcoder, on virtual shards of the one card ----
@@ -1868,7 +2057,9 @@ def main():
              "libvpx_opencl_tpu/ops/me_pallas.py:48", k3_bounds),
             ("k5", "encode_wavefront", "libvpx_opencl_tpu_torch/csrc/"
              "encode_wavefront.cu", "libvpx_opencl_tpu/models/wavefront.py"
-             ":253", k5_bounds)):
+             ":253", k5_bounds),
+            ("k6", "trellis", "libvpx_opencl_tpu_torch/csrc/trellis.cu",
+             "libvpx_opencl_tpu/ops/rd_device.py:193", k6_bounds)):
         b_ms, b_by = bound(bs)
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -49,9 +49,9 @@
 //
 // Arithmetic that must match the plain version exactly:
 //   * rdc = float(double(floor((128 + r*rdmult)/256)) + double(rddiv)*sse):
-//     the float32 part with explicit round-to-nearest intrinsics (no FMA
-//     contraction), the double sum with __dmul_rn/__dadd_rn, rounded to
-//     float once;
+//     rdcost.cuh's rdfloor and rdcost (explicit round-to-nearest
+//     intrinsics, no FMA contraction; the double sum rounded to float
+//     once);
 //   * the reciprocal product xq*quant wraps in int32 in the plain version:
 //     it is taken as an unsigned 32-bit product and cast back before the
 //     arithmetic shift;
@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include "intra_pred.cuh"
+#include "rdcost.cuh"
 #include "rowlag.cuh"
 
 namespace {
@@ -259,12 +260,6 @@ __device__ __forceinline__ Quant quantize(unsigned mask, int coef, int l,
   }
   const int y = mine < cnt && !skip ? cand : 0;
   return {coef < 0 ? -y : y, eob};
-}
-
-// rdc (ops/rd_device.py) of a mode whose float32 floor term is `fl`.
-__device__ __forceinline__ float rdcost(float fl, double rddiv, int sse) {
-  return __double2float_rn(
-      __dadd_rn((double)fl, __dmul_rn(rddiv, (double)sse)));
 }
 
 // What a block loads for one MB before it may run it; nothing here depends
@@ -545,9 +540,7 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
   if (bmode_cost != nullptr) {  // read by the first take_row's barrier
     if (t < 10)
-      fl[t] = floorf(__fdiv_rn(
-          __fadd_rn(128.0f, __fmul_rn((float)bmode_cost[t], *rdmult)),
-          256.0f));
+      fl[t] = rdfloor((float)bmode_cost[t], *rdmult);
     if (t == 10) rddiv_s = (double)*rddiv;
   }
   const int scan = kInvZigzag[t & 15];  // zig-zag position of this lane

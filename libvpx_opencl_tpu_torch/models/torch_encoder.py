@@ -348,22 +348,11 @@ def _trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
                  rdmult, rddiv):
     """optimize_b on M macroblocks' levels (the vp8_optimize_mby/mbuv
     role): coefs, q0 [M,25,16] and e0 [M,25] as `wf.transform_quant`
-    returns them. The entropy contexts chain inside the MB from the
-    regular quantizer's eobs. Returns (qcoeff [M,25,16], eobs [M,25]),
-    Y eobs at least 1."""
-    m = coefs.shape[0]
-    ctx_y = RD._ctx_grid((e0[:, :16] > 1).to(torch.int32), 4)
-    qy, ey = RD.trellis_batch(coefs[:, :16], q0[:, :16], dq_y1[:, None],
-                              tcb0, 1, 4.0, ctx_y, rdmult, rddiv)
-    qy2, ey2 = RD.trellis_batch(coefs[:, 24], q0[:, 24], dq_y2, tcb1, 0,
-                                16.0, 0, rdmult, rddiv)
-    nzuv = (e0[:, 16:24] > 0).to(torch.int32).reshape(m, 2, 4)
-    quv, euv = RD.trellis_batch(coefs[:, 16:24], q0[:, 16:24],
-                                dq_uv[:, None], tcb2, 0, 2.0,
-                                RD._ctx_grid(nzuv, 2).reshape(m, 8), rdmult,
-                                rddiv)
-    return (torch.cat([qy, quv, qy2[:, None]], 1),
-            torch.cat([ey.clamp(min=1), euv, ey2[:, None]], 1))
+    returns them. Returns (qcoeff [M,25,16], eobs [M,25]), Y eobs at least
+    1: one K6 launch on the card, the plain version on the CPU
+    (`RD.trellis_mbs`)."""
+    return RD.trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1,
+                          tcb2, rdmult, rddiv)
 
 
 def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,

@@ -44,6 +44,7 @@ KERNELS = {
     "encode_wavefront": ("encode_wavefront.cu", "encode_wavefront",
                          [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
                           _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP]),
+    "trellis": ("trellis.cu", "trellis", [_VP] * 13 + [_I, _VP, _VP, _VP]),
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its

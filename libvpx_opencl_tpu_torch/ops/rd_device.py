@@ -28,6 +28,10 @@ What differs from the JAX file, and why the numbers do not:
 
 `rdc` keeps the JAX file's float32 type and rounds as the jitted JAX
 function does (see its docstring).
+
+`trellis_mbs` runs the trellis of a frame's inter MBs (Y with Y2, Y2, U
+and V) as one launch of csrc/trellis.cu (K6) on CUDA tensors, and its plain
+version `trellis_mbs_plain` (three `trellis_batch` calls) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models import rdopt
+from . import _cuda
 from . import tables as T
 from . import transforms as tf
 
@@ -357,3 +362,83 @@ def trellis_batch(coefs, q, dq, tcb, i0, plane_rd_mult, ctx, rdmult, rddiv):
     eob_out = torch.where(out != 0, scan + 1, 0).amax(-1)
     return (out[:, INV_ZZ].to(torch.int32).reshape(*shape, 16),
             eob_out.to(torch.int32).reshape(shape))
+
+
+def trellis_mbs_plain(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
+                      rdmult, rddiv):
+    """optimize_b on M macroblocks' levels (the vp8_optimize_mby/mbuv
+    role), the plain version of `trellis_mbs`: coefs, q0 [M,25,16] and e0
+    [M,25] as `models/wavefront.py:transform_quant` returns them. The
+    entropy contexts chain inside the MB from the regular quantizer's eobs.
+    Returns (qcoeff [M,25,16], eobs [M,25]), Y eobs at least 1."""
+    m = coefs.shape[0]
+    ctx_y = _ctx_grid((e0[:, :16] > 1).to(torch.int32), 4)
+    qy, ey = trellis_batch(coefs[:, :16], q0[:, :16], dq_y1[:, None], tcb0,
+                           1, 4.0, ctx_y, rdmult, rddiv)
+    qy2, ey2 = trellis_batch(coefs[:, 24], q0[:, 24], dq_y2, tcb1, 0, 16.0,
+                             0, rdmult, rddiv)
+    nzuv = (e0[:, 16:24] > 0).to(torch.int32).reshape(m, 2, 4)
+    quv, euv = trellis_batch(coefs[:, 16:24], q0[:, 16:24], dq_uv[:, None],
+                             tcb2, 0, 2.0, _ctx_grid(nzuv, 2).reshape(m, 8),
+                             rdmult, rddiv)
+    return (torch.cat([qy, quv, qy2[:, None]], 1),
+            torch.cat([ey.clamp(min=1), euv, ey2[:, None]], 1))
+
+
+def trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
+                rdmult, rddiv):
+    """The trellis of M inter MBs, arguments and result as
+    `trellis_mbs_plain`.
+
+    CUDA tensors: one launch of csrc/trellis.cu (K6) when M > 0, counted in
+    launches["trellis"]; every tensor int32 on one card, rdmult/rddiv
+    float32 scalars (0-dim tensors on the card, as TorchEncoder holds them,
+    or Python numbers). CPU tensors: the plain version."""
+    args = (coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2)
+    if all(t.device.type == "cpu" for t in args):
+        return trellis_mbs_plain(*args, rdmult, rddiv)
+    ins = k6_inputs(*args, rdmult, rddiv)
+    out = (torch.empty_like(ins[0]), torch.empty_like(ins[2]))
+    if coefs.shape[0]:
+        k6_launch(ins, out)
+    return out
+
+
+def k6_inputs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, rdmult,
+              rddiv):
+    """K6's checked inputs on the card, in its C entry point's order:
+    (coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, token table,
+    value-cost table, rdmult, rddiv). Raises ValueError on what the kernel
+    does not take."""
+    dev = coefs.device
+    m = coefs.shape[0]
+    shapes = [(m, 25, 16), (m, 25, 16), (m, 25), (m, 2), (m, 2), (m, 2)] + \
+        [(16, 3, 12)] * 3
+    ins = [coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2]
+    for t, shape in zip(ins, shapes):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("trellis_mbs: every tensor must lie on one "
+                             f"CUDA device, got {t.device} beside {dev}")
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"trellis_mbs: expected int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    ins = [t.contiguous() for t in ins]
+    if any(t.data_ptr() % 16 for t in ins[:2]):
+        raise ValueError("trellis_mbs: coefs and q0 must be 16-byte aligned")
+    ins += list(_value_tables(dev))
+    ins += [torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+            for x in (rdmult, rddiv)]
+    return tuple(ins)
+
+
+def k6_launch(ins, out):
+    """One K6 launch on the current stream of the inputs' card: `ins` from
+    `k6_inputs`, `out` (qcoeff [M,25,16], eobs [M,25]) int32, M > 0."""
+    fn = _cuda.load()["trellis"]
+    dev = ins[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ins[:13]), ins[0].shape[0],
+                out[0].data_ptr(), out[1].data_ptr(), stream)
+    _cuda.check(rc, "trellis")
+    _cuda.count_launch("trellis")

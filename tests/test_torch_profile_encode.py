@@ -32,6 +32,10 @@ def test_profile_torch_encode_on_cpu(capsys):
             assert 0 < row["level_steps"] <= row["encode_wavefront"] \
                 <= row["encode"] <= row["total"]
             assert row["intra_mbs"] > 0 and row["levels"] >= 1
+            # CPU tensors: the trellis's plain version, no K6 launch
+            assert row["k6_launches"] == 0
     assert out["default"]["inter_frames_s"][0]["bpred_mbs"] > 0
     assert out["default"]["inter_frames_s"][0]["bpred_lanes"] > 0
+    assert out["default"]["inter_frames_s"][0]["trellis"] > 0
+    assert "trellis" not in out["slice2"]["inter_frames_s"][0]
     assert "bpred_lanes" not in out["slice2"]["keyframe_s"]

@@ -26,7 +26,9 @@ device work and add up to the frame:
   * host pack (Encoder._pack);
   * other: uploads, host grids, MV->mode mapping.
 Each frame's row also holds its number of intra MBs, of B_PRED MBs and of
-the dependency levels the plain version walks (`intra_levels`). Then a
+the dependency levels the plain version walks (`intra_levels`), and K6's
+launches in the frame (`k6_launches`, beside the `trellis` stage: one per
+inter frame with inter MBs at default features on the card). Then a
 third encoder of each feature set encodes the same frames again, the last
 one under torch.profiler, for the device's busy time and idle share on an
 inter frame.
@@ -70,6 +72,7 @@ def main(argv=None):
     from libvpx_opencl_tpu_torch.models import torch_decoder as TD
     from libvpx_opencl_tpu_torch.models import torch_encoder as TE
     from libvpx_opencl_tpu_torch.models import wavefront as EW
+    from libvpx_opencl_tpu_torch.ops import _cuda
     from libvpx_opencl_tpu_torch.ops import me_sad
     from libvpx_opencl_tpu_torch.ops import wavefront as W
 
@@ -119,13 +122,15 @@ def main(argv=None):
         enc.sf = sf
         for frame in frames:
             stage.clear()
+            k6 = _cuda.launches["trellis"]
             sync()
             t0 = time.perf_counter()
             payload = enc.encode_frame(*frame)
             sync()
             if per_frame is not None:
                 row = dict(stage, total=time.perf_counter() - t0,
-                           bytes=len(payload), **shape.pop())
+                           bytes=len(payload), **shape.pop(),
+                           k6_launches=_cuda.launches["trellis"] - k6)
                 row["mc"] = row["encode"] - row["encode_wavefront"] - \
                     row.get("trellis", 0.0)
                 row["other"] = row["total"] - sum(
