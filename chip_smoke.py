@@ -28,7 +28,9 @@ code != 0). It prints, in order:
   * K5 (encode wavefront) vs its plain version on random frames at 4x6,
     3x3, 1x5, 5x1 (C = 1), 2x2, 1x1 and 8x40, qindex 4, 24, 47, 48 and
     127, intra and B_PRED shares up to all-B_PRED, a random top border row
-    (top_interior) on half of them: all six outputs exact;
+    (top_interior) on half of them, and at 8x40 two patterns of B_PRED
+    runs (1-3 and 4-12 MBs long) broken by 16x16 and inter MBs: all six
+    outputs exact;
   * K6 (the trellis) vs its plain version on random MBs (trellis_case) at
     Ni = 1, 31 and 8160 inter MBs, qindex 0, 4, 24, 63 and 127, levels up
     to 2047 (cat6), all-zero and eob-16 blocks: levels and eobs exact;
@@ -82,10 +84,12 @@ code != 0). It prints, in order:
     and B_PRED MBs, inter MBs the trellis ran on, the plain version's
     dependency levels, its seconds and K5's and K6's times by CUDA events
     in the encoder; frames/s;
-    then K5 vs plain on that encode's keyframe and inter frame 1 (all six
-    outputs exact; the plain version's time) and K5's launch alone on
-    every frame's inputs (CUDA events, median of 3, after the inter batch)
-    with its chain of dependent MB steps, its us per step and its bound;
+    then K5 vs plain on that encode's keyframe and inter frames 1 and 3
+    (all six outputs exact; the plain version's time) and K5's launch
+    alone on every frame's inputs (CUDA events, median of 3, after the
+    inter batch) with its chain of dependent steps (k5_chain, a model of
+    the kernel's schedule on the frame's flags: 187 on the all-16x16
+    keyframe, checked), its us per step and its bound;
     K6 vs plain on the trellis inputs of inter frames 1 and 2 (levels and
     eobs exact; the plain version's time) and K6's launch alone on every
     inter frame's inputs (CUDA events, median of 3) with its bound; then a
@@ -102,7 +106,12 @@ code != 0). It prints, in order:
     decode_streams with 2 groups x 2 shards on inter_cif and part4_cif;
     ShardedTorchEncoder at 4 shards under SLICE2_SF, its payloads equal to
     the SLICE2_SF phase's, K3 once per reference per shard, K5 once per
-    shard, K6 never; encode_gops at 1080p, 2 groups x 2 frames, equal to a
+    shard, K6 never; ShardedTorchEncoder at 2 and 4 shards under the
+    default speed features with B_PRED off (the trellis on), its payloads
+    equal to a single-card TorchEncoder's with the same features, K6 once
+    per shard per inter frame and never on the keyframe, each payload
+    decoded by TorchDecoder equal to the encoder's reconstruction;
+    encode_gops at 1080p, 2 groups x 2 frames, equal to a
     sequential encode with the same keyframes, K5 once per frame, K6
     never; the BatchTranscoder on two QCIF jobs with resume (default
     features: K6 on their inter frames), equal to a sequential transcode;
@@ -147,6 +156,12 @@ SPLIT_FRAMES = 2
 K5_GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (2, 2), (1, 1), (8, 40)]
 K5_QINDEX = [4, 24, 47, 48, 127]
 K5_SHARES = [(1.0, 1.0), (0.7, 0.5), (1.0, 0.0), (0.5, 0.3)]
+# K5 vs plain at 8 x 40: B_PRED runs of these lengths broken by 16x16 and
+# inter MBs (encode_case's runs), at qindex 24 and 60
+K5_RUNS = [(1, 3), (4, 12)]
+# K5 vs plain on these frames of the default-feature 1080p encode: the
+# keyframe (all 16x16), inter frame 1 and inter frame 3 (5110 B_PRED MBs)
+K5_PLAIN_FRAMES = (0, 1, 3)
 # K6 vs plain on random MBs: inter MB counts (8160: every MB of a 1080p
 # frame) and qindex values from the smallest quantizer to the largest
 K6_NI = [1, 31, 8160]
@@ -192,12 +207,15 @@ def lf_case(np, rng, R, C):
             np.clip(flevel // 16 + 1, 0, 3), rng.random(N) < 0.7)
 
 
-def encode_case(np, rng, R, C, qindex, intra_share, bpred_share, with_top):
+def encode_case(np, rng, R, C, qindex, intra_share, bpred_share, with_top,
+                runs=None):
     """Random inputs of the encode wavefront (numpy): flat or textured
     sources, inter predictions near them or not, modes with a share of
     B_PRED, the quantizer and RD constants of qindex (the encoder's), and
-    optionally a random top border row per plane. Returns (args, kw) as
-    encode_recon_planes takes them."""
+    optionally a random top border row per plane. runs: None, or (lo, hi):
+    each row is then runs of lo..hi consecutive B_PRED MBs, each broken by
+    one or two 16x16 or inter MBs (the shares are not used). Returns
+    (args, kw) as encode_recon_planes takes them."""
     from libvpx_opencl_tpu_torch.models import rdopt
     from libvpx_opencl_tpu_torch.models.refdec import dequant_factors
     from libvpx_opencl_tpu_torch.ops import wavefront as W
@@ -218,6 +236,18 @@ def encode_case(np, rng, R, C, qindex, intra_share, bpred_share, with_top):
                     rng.integers(0, 4, N)).astype(np.int32)
     uv_mode = rng.integers(0, 4, N).astype(np.int32)
     intra = rng.random(N) < intra_share
+    if runs is not None:
+        kinds = []                     # per MB: 0 inter, 1 16x16, 2 B_PRED
+        for _ in range(R):
+            row = []
+            while len(row) < C:
+                row += [2] * int(rng.integers(runs[0], runs[1] + 1))
+                row += [int(rng.integers(0, 2))] * int(rng.integers(1, 3))
+            kinds += row[:C]
+        kinds = np.asarray(kinds)
+        intra = kinds > 0
+        mode = np.where(kinds == 2, W.B_PRED_M, mode % W.B_PRED_M) \
+            .astype(np.int32)
     dqs = [np.tile(np.asarray(d, np.int32), (N, 1))
            for d in dequant_factors(qindex, 0, 0, 0, 0, 0)]
     rdm, rdd, _ = rdopt.rd_consts(qindex)
@@ -624,19 +654,40 @@ def k5_to_card(torch, np, args, kw):
     return [up(a) for a in args], kw
 
 
-def k5_chain(np, R, C, intra):
-    """Dependent MB steps on K5's critical path: a block runs its row's
-    intra MBs in turn, and MB (r,c) waits until row r-1 has finished
-    min(c+2, C) MBs (inter MBs are done before the launch). 2(R-1)+C on a
-    keyframe."""
+def k5_chain(np, R, C, intra, bpred=None):
+    """Dependent steps on K5's critical path. A block runs its row's intra
+    MBs in turn (inter MBs are done before the launch): a 16x16 MB (r,c)
+    is one step once row r-1 has finished min(c+1, C) MBs; a run of k
+    consecutive B_PRED MBs is 4k + 6 sub-block steps, its MB m entering at
+    step 4m once row r-1 has finished min(c+2, C) MBs and done after step
+    4m + 9. (R-1)+C on an all-16x16 keyframe."""
     intra = np.asarray(intra, bool).reshape(R, C)
+    bp = np.zeros((R, C), bool) if bpred is None else \
+        np.asarray(bpred, bool).reshape(R, C) & intra
     done = np.zeros((R + 1, C), np.int64)   # last finish at or left of c
     for r in range(R):
-        prev = 0
-        for c in range(C):
-            if intra[r, c]:
-                prev = max(prev, done[r, min(c + 1, C - 1)]) + 1
-            done[r + 1, c] = prev
+        above = done[r]
+        t, c = 0, 0
+        while c < C:
+            if not intra[r, c]:
+                done[r + 1, c] = t
+                c += 1
+            elif not bp[r, c]:
+                t = max(t, above[min(c, C - 1)]) + 1
+                done[r + 1, c] = t
+                c += 1
+            else:
+                e = c
+                while e < C and bp[r, e]:
+                    e += 1
+                k = e - c
+                for s in range(4 * k + 6):
+                    if s % 4 == 0 and s // 4 < k:
+                        t = max(t, above[min(c + s // 4 + 1, C - 1)])
+                    t += 1
+                    if s >= 9 and (s - 9) % 4 == 0:
+                        done[r + 1, c + (s - 9) // 4] = t
+                c = e
     return int(done.max())
 
 
@@ -664,7 +715,8 @@ def k5_vs_plain(torch, label, R, C, args, kw, err, plain_ms=None):
 def k5_phases(torch, np, err):
     """K5 vs its plain version on random frames: each of K5_GEOMS at each
     of K5_QINDEX with one (intra, B_PRED) share pair in turn, every share
-    pair at 8 x 40, a top border row on every other case."""
+    pair at 8 x 40, a top border row on every other case; then the
+    K5_RUNS patterns at 8 x 40."""
     t0 = time.perf_counter()
     cases = []
     for i, (R, C) in enumerate(K5_GEOMS):
@@ -673,14 +725,17 @@ def k5_phases(torch, np, err):
                 [K5_SHARES[(i + j) % len(K5_SHARES)]]
             for ish, bsh in pairs:
                 cases.append((R, C, q, ish, bsh, (i + j) % 2 == 0))
-    for k, (R, C, q, ish, bsh, top) in enumerate(cases):
+    for j, runs in enumerate(K5_RUNS):
+        cases.append((8, 40, 24 + 36 * j, 0.0, 0.0, j == 0, runs))
+    for k, (R, C, q, ish, bsh, top, *runs) in enumerate(cases):
         rng = np.random.default_rng(9000 + k)
         args, kw = k5_to_card(torch, np, *encode_case(
-            np, rng, R, C, q, ish, bsh, top))
-        k5_vs_plain(torch, f"{R}x{C} q{q}", R, C, args, kw, err)
+            np, rng, R, C, q, ish, bsh, top, *runs))
+        k5_vs_plain(torch, f"{R}x{C} q{q} runs {runs}", R, C, args, kw, err)
     print(f"K5 vs plain on {len(cases)} random frames ({sorted(set(K5_GEOMS))}"
           f", qindex {K5_QINDEX}, intra / B_PRED shares {K5_SHARES}, top "
-          f"border row on half of them): all six outputs exact, "
+          f"border row on half of them; at 8x40 B_PRED runs of lengths "
+          f"{K5_RUNS} broken by 16x16 and inter MBs): all six outputs exact, "
           f"max_abs_diff {err['encode_wavefront']} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -736,7 +791,10 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
     bench_1080p at 2 and 4 shards (MD5 of every frame, one K1 launch per
     shard per frame, fps beside 1 shard); decode_streams with 2 groups x
     2 shards; ShardedTorchEncoder at 4 shards under SLICE2_SF (payloads
-    == the single-card SLICE2_SF phase's); encode_gops at 1080p, 2 groups
+    == the single-card SLICE2_SF phase's); ShardedTorchEncoder at 2 and 4
+    shards with the trellis (default features, B_PRED off; payloads == a
+    single-card TorchEncoder's, K6 once per shard per inter frame, closed
+    loop); encode_gops at 1080p, 2 groups
     x 2 frames (== a sequential encode with the same keyframes); the
     BatchTranscoder on two QCIF jobs with resume. Every count is zeroed
     just before a path and read just after; returns the summed launches.
@@ -916,6 +974,54 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
           f"launches {got['lf_wavefront']}, K5 launches per frame {k5} (one "
           f"per shard); seconds per frame {[round(x, 3) for x in secs]} "
           f"[{card}]", flush=True)
+
+    # 4b. ShardedTorchEncoder with the trellis: 2 and 4 shards, default
+    # speed features with B_PRED off, == a single-card TorchEncoder with
+    # the same features; K6 once per shard per inter frame; closed loop
+    from dataclasses import replace
+    ref = TE.TorchEncoder(1920, 1080, qindex=24, device="cuda")
+    ref.sf = replace(ref.sf, bpred=False)
+    want = [ref.encode_frame(*f) for f in src_frames]
+    for n in (2, 4):
+        zero()
+        enc = ShardedTorchEncoder(1920, 1080, qindex=24, n_devices=n)
+        if enc.sf != ref.sf:
+            fail(f"ShardedTorchEncoder's speed features {enc.sf} are not the "
+                 f"default ones with B_PRED off")
+        dec = TD.TorchDecoder(device="cuda")
+        secs, k6 = [], []
+        for i, frame in enumerate(src_frames):
+            before = W.launches["trellis"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = enc.encode_frame(*frame)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            k6.append(W.launches["trellis"] - before)
+            if payload != want[i]:
+                fail(f"ShardedTorchEncoder {n} shards with the trellis frame "
+                     f"{i}: payload differs from the single-card encode")
+            show, planes = dec.decode_frame(payload)
+            recon = enc.ref_last.visible()
+            if not show or any(not np.array_equal(a, b)
+                               for a, b in zip(planes, recon)):
+                fail(f"ShardedTorchEncoder {n} shards with the trellis frame "
+                     f"{i}: the decoded payload differs from the encoder's "
+                     f"reconstruction")
+        got = add()
+        if k6 != [0] + [len(enc.rows)] * (len(src_frames) - 1) or \
+                got["encode_wavefront"] != len(enc.rows) * len(src_frames):
+            fail(f"ShardedTorchEncoder {n} shards with the trellis: K6 "
+                 f"launches per frame {k6}, K5 {got['encode_wavefront']}")
+        print(f"ShardedTorchEncoder {n} shards (MB rows "
+              f"{[r1 - r0 for r0, r1 in enc.rows]}) with the trellis "
+              f"(default features, B_PRED off): {len(src_frames)} 1080p "
+              f"payloads == the single-card encode's "
+              f"({[len(p) for p in want]} bytes), decoded == the encoder's "
+              f"reconstruction; K6 launches per frame {k6} (one per shard "
+              f"per inter frame), K5 launches {got['encode_wavefront']}; "
+              f"seconds per frame {[round(x, 3) for x in secs]} [{card}]",
+              flush=True)
 
     # 5. encode_gops at 1080p: 2 groups x 2 frames vs sequential
     zero()
@@ -1630,7 +1736,8 @@ def main():
     def probe_ew(*a):
         # a = (R, C, three source and three prediction tensors, mode,
         # uv_mode, intra, ...)
-        ew_steps.append(k5_chain(np, a[0], a[1], a[10].cpu().numpy()))
+        ew_steps.append(k5_chain(np, a[0], a[1], a[10].cpu().numpy(),
+                                 (a[8] == W.B_PRED_M).cpu().numpy()))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = ew_fn(*a)
@@ -1882,13 +1989,13 @@ def main():
     # -- K5 vs plain at 1080p (the keyframe and inter frame 1 of that
     # encode), then K5's launch alone on every frame's inputs -------------
     k5_plain_ms = []
-    for i in (0, 1):
+    for i in K5_PLAIN_FRAMES:
         a = k5_inputs[i]
         k5_vs_plain(torch, f"1080p default-feature frame {i}", a[0], a[1],
                     a[2:], {}, err, k5_plain_ms)
-    print(f"K5 vs plain on 1080p default-feature frames 0 (key) and 1 "
-          f"(inter): all six outputs exact; plain {k5_plain_ms[0]:.1f} / "
-          f"{k5_plain_ms[1]:.1f} ms [{card}]", flush=True)
+    print(f"K5 vs plain on 1080p default-feature frames {K5_PLAIN_FRAMES} "
+          f"(0 the keyframe): all six outputs exact; plain "
+          f"{[round(x, 1) for x in k5_plain_ms]} ms [{card}]", flush=True)
     plain_ms["k5"] = k5_plain_ms
     e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
     k5_alone, k5_bounds, k5_steps = [], [], []
@@ -1923,8 +2030,13 @@ def main():
                                                 + 425 * 4) + nb * 16 * 4
         ops = ni * 384 * 40 + nb * 256 * 10 * 5
         k5_bounds.append((byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S))
-        k5_steps.append(k5_chain(np, R5, C5, intra_np))
+        k5_steps.append(k5_chain(np, R5, C5, intra_np, bpred_np))
     k_ms["k5"] = statistics.mean(k5_alone)
+    R5, C5 = k5_inputs[0][:2]
+    if k5_steps[0] != R5 - 1 + C5 and not int((k5_inputs[0][8] ==
+                                               W.B_PRED_M).sum()):
+        fail(f"K5's chain on the all-16x16 keyframe is {k5_steps[0]} steps, "
+             f"not (R-1)+C = {R5 - 1 + C5}")
     k5_enc = [x.elapsed_time(y) for x, y in k5_events]
     per_step = [round(a * 1e3 / b, 3) for a, b in zip(k5_alone[1:],
                                                       k5_steps[1:])]
@@ -1933,7 +2045,7 @@ def main():
           f"{k5_alone[0]:.4f} ms, inter {[round(x, 4) for x in k5_alone[1:]]}"
           f" ms; {statistics.mean(k5_enc):.4f} ms/frame by events in the "
           f"encoder), 1 launch/frame; K5's chain of dependent MB steps "
-          f"{k5_steps[0]} on the keyframe, "
+          f"(k5_chain's model) {k5_steps[0]} on the keyframe, "
           f"{k5_alone[0] * 1e3 / k5_steps[0]:.3f} us/step, inter "
           f"{k5_steps[1:]}, {per_step} us/step; bound "
           f"{max(k5_bounds[0]) * 1e3:.4f} ms (keyframe) [{card}]", flush=True)

@@ -133,6 +133,8 @@ struct Ctx {
   int64_t* ymode_ct;  // [5]
   int64_t* uv_ct;     // [4]
   MvStats* mvstats;   // [2]
+  // set by write_mv on an odd delta, which the format cannot carry
+  mutable bool odd_mv;
 
   inline int gmode(int pr, int pc) const { return mode[pr * (C + 1) + pc]; }
   inline int gref(int pr, int pc) const { return reff[pr * (C + 1) + pc]; }
@@ -228,8 +230,14 @@ inline void count_mv_component(MvStats& st, int v) {
   }
 }
 
-// dual of read_mvcomponent (decodemv.c:76-107); delta in 1/8 units
+// dual of read_mvcomponent (decodemv.c:76-107); delta in 1/8 units, even
+// (the Python golden asserts it): an odd one would be counted as
+// delta >> 1 but written as |delta| >> 1, so it is refused (g.odd_mv)
 void write_mv(const Ctx& g, BoolEnc* e, int delta, int comp, bool counting) {
+  if (delta & 1) {
+    g.odd_mv = true;
+    return;
+  }
   if (counting && g.mvstats) count_mv_component(g.mvstats[comp], delta >> 1);
   if (!e) return;
   int x = (delta < 0 ? -delta : delta) >> 1;
@@ -463,6 +471,7 @@ void fill_ctx(Ctx& g, int R, int C, const int32_t* mode, const int32_t* reff,
   g.ymode_ct = nullptr;
   g.uv_ct = nullptr;
   g.mvstats = nullptr;
+  g.odd_mv = false;
 }
 
 }  // namespace
@@ -509,6 +518,7 @@ int vp8e_map_mv_modes(int R, int C, int32_t* mode, const int32_t* reff,
 // ymode[5]/uv[4] histograms and per-component MV event stats
 // (MVcount role feeding vp8_write_mvprobs).  mvstats layout per comp:
 // [sign0, sign1, short0, short1, shortc[8], bits[10][2]] = 32 int64.
+// Returns -2 if an MV delta is odd, else 0.
 int vp8e_count_modes(int R, int C, const int32_t* mode, const int32_t* reff,
                      const int32_t* mv, const int32_t* bmode,
                      const int32_t* bmv, const int32_t* split_part,
@@ -536,13 +546,14 @@ int vp8e_count_modes(int R, int C, const int32_t* mode, const int32_t* reff,
       o[12 + 2 * k + 1] = st[comp].bits[k][1];
     }
   }
-  return 0;
+  return g.odd_mv ? -2 : 0;
 }
 
 // Real mode-section pack, continuing an in-progress partition-0 bool
 // encoder.  state = [lowvalue, range, count, buf_len in/out]; buf holds
 // the bytes emitted so far and receives the appended section (caller
-// provides buf_cap headroom; returns -1 on overflow).
+// provides buf_cap headroom; returns -1 on overflow, -2 if an MV delta is
+// odd).
 int64_t vp8e_pack_modes(int R, int C, int keyframe, const int32_t* mode,
                         const int32_t* reff, const int32_t* mv,
                         const int32_t* bmode, const int32_t* bmv,
@@ -568,6 +579,7 @@ int64_t vp8e_pack_modes(int R, int C, int keyframe, const int32_t* mode,
   for (int r = 0; r < R; r++)
     for (int c = 0; c < C; c++)
       pack_mb_modes(g, &e, r, c, keyframe, false);
+  if (g.odd_mv) return -2;
   if ((int64_t)e.buf.size() > buf_cap) return -1;
   std::memcpy(buf, e.buf.data(), e.buf.size());
   state[0] = e.lowvalue;

@@ -1,5 +1,6 @@
-// Row tickets and lag-2 progress counters shared by the persistent
-// row-lagged wavefront kernels (intra_wavefront.cu, lf_wavefront.cu).
+// Row tickets and progress counters shared by the persistent row-lagged
+// wavefront kernels (intra_wavefront.cu, lf_wavefront.cu,
+// encode_wavefront.cu).
 //
 // `sync` is an int32 scratch array of R+1 zeros that the wrapper allocates
 // on the launch stream: sync[0] hands out MB rows in start order, sync[1+r]
@@ -65,24 +66,30 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// Block until row r-1 has finished `need` MBs (r > 0). Worker thread 0
-// keeps the last count it saw in `seen` and polls only when that is short.
-// Ends with the workers' barrier, after which every worker may read what
-// those MBs wrote.
+// One thread: spin until row r-1 has finished `need` MBs (r > 0). It keeps
+// the last count it saw in `seen` and polls only when that is short. A
+// barrier of the threads that read those MBs' pixels must follow.
+__device__ __forceinline__ void poll_above(const int* sync, int r, int need,
+                                           int& seen) {
+  if (seen >= need) return;
+  const int* p = sync + r;  // progress of row r-1
+  const uint64_t t0 = globaltimer_ns();
+  unsigned ns = 0;
+  int v;
+  while ((v = ld_acquire(p)) < need) {
+    if (globaltimer_ns() - t0 > kWatchdogNs) __trap();
+    if (ns) __nanosleep(ns);
+    ns = ns ? (ns < 256 ? 2 * ns : 256) : 16;
+  }
+  seen = v;
+}
+
+// Block until row r-1 has finished `need` MBs (r > 0): worker thread 0
+// polls. Ends with the workers' barrier, after which every worker may read
+// what those MBs wrote.
 __device__ __forceinline__ void wait_above(const int* sync, int r, int need,
                                            int& seen, int nw) {
-  if (threadIdx.x == 0 && seen < need) {
-    const int* p = sync + r;  // progress of row r-1
-    const uint64_t t0 = globaltimer_ns();
-    unsigned ns = 0;
-    int v;
-    while ((v = ld_acquire(p)) < need) {
-      if (globaltimer_ns() - t0 > kWatchdogNs) __trap();
-      if (ns) __nanosleep(ns);
-      ns = ns ? (ns < 256 ? 2 * ns : 256) : 16;
-    }
-    seen = v;
-  }
+  if (threadIdx.x == 0) poll_above(sync, r, need, seen);
   bar_sync(1, nw);
 }
 

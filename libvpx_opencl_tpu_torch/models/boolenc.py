@@ -41,7 +41,10 @@ class BoolEncoder:
                 while x >= 0 and self.buf[x] == 0xFF:
                     self.buf[x] = 0
                     x -= 1
-                self.buf[x] += 1
+                # a carry past the first byte is dropped, as in
+                # csrc/host/vp8_pack.cpp
+                if x >= 0:
+                    self.buf[x] += 1
             self.buf.append((lowvalue >> (24 - offset)) & 0xFF)
             lowvalue <<= offset
             shift = count

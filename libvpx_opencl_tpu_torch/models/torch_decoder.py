@@ -21,6 +21,7 @@ tests do); there is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 
 import numpy as np
@@ -201,11 +202,17 @@ class FrameFuture:
     enqueueing the frame: resolves to the DeviceFrame on first pixel access
     so the host entropy thread never blocks on the device."""
 
-    def __init__(self, fut):
+    def __init__(self, fut, dec):
         self._fut = fut
+        self._dec = dec
 
     def _f(self):
-        return self._fut.result()
+        try:
+            return self._fut.result()
+        except BaseException:
+            # the decoder's first failure is reported here, not again
+            self._dec._raise_dispatch_error()
+            raise
 
     @property
     def y(self):
@@ -250,6 +257,7 @@ class TorchDecoder(RefDecoder):
 
     _dispatch_pool = None
     _pending = None
+    _dispatch_error = None     # the worker's first failure, until reported
 
     def __init__(self, device="cuda"):
         super().__init__()
@@ -277,7 +285,6 @@ class TorchDecoder(RefDecoder):
         self._sync()
         super()._alloc()
         if self._dispatch_pool is None:
-            import concurrent.futures as cf
             self._dispatch_pool = cf.ThreadPoolExecutor(max_workers=1)
         self.last = self.golden = self.altref = self._zero_frame()
 
@@ -293,21 +300,35 @@ class TorchDecoder(RefDecoder):
     def _sync(self):
         """Join the dispatch worker (before any main-thread access to the
         device reference ring: _alloc, concealment, load_reference{,_ring},
-        the API's get_reference)."""
+        the API's get_reference), then raise a dispatch failure not yet
+        reported."""
         if self._pending is not None:
-            try:
-                self._pending.result()
-            finally:
-                # clear even on failure: a dispatch-worker exception must
-                # surface exactly once, leaving the reference ring at the
-                # last committed frame so the stream can continue
-                self._pending = None
+            cf.wait([self._pending])
+            self._pending = None
+        self._raise_dispatch_error()
+
+    def _raise_dispatch_error(self):
+        """Raise the worker's first failure, once. The frames queued behind
+        it are refused (`_dispatch`); they are waited out before the
+        failure is cleared, so the reference ring stays at the last
+        committed frame and the stream can continue."""
+        err = self._dispatch_error
+        if err is None:
+            return
+        if self._pending is not None:
+            cf.wait([self._pending])
+            self._pending = None
+        self._dispatch_error = None
+        raise err
 
     def conceal_missing_frame(self):
         self._sync()
         return super().conceal_missing_frame()
 
     def _reconstruct(self):
+        # report a failure the worker has had; a dispatch still running is
+        # not waited for, so the entropy thread keeps its overlap with it
+        self._raise_dispatch_error()
         self._detokenize_all()
         np_args = self._prep_arrays()
         meta = (self.mb_rows, self.mb_cols, bool(self.simple_filter),
@@ -318,8 +339,22 @@ class TorchDecoder(RefDecoder):
                 getattr(self, "refresh_alt", 0),
                 getattr(self, "refresh_last", 1),
                 bool(self.use_bilinear), self.w, self.h)
-        self._pending = self._dispatch_pool.submit(self._worker_dispatch,
+        self._pending = self._dispatch_pool.submit(self._dispatch,
                                                    np_args, meta)
+
+    def _dispatch(self, np_args, meta):
+        """The dispatch worker's job for one frame. It keeps its first
+        failure for the entropy thread and refuses the frames queued behind
+        it until that has been reported, so none of them advances the ring
+        past the last committed frame."""
+        if self._dispatch_error is not None:
+            raise RuntimeError("frame not dispatched: an earlier dispatch "
+                               "failed")
+        try:
+            return self._worker_dispatch(np_args, meta)
+        except BaseException as e:
+            self._dispatch_error = e
+            raise
 
     def _upload_qcoeff(self, qcoeff):
         """int16 coefficients to the device; on CUDA through a pinned
@@ -408,7 +443,7 @@ class TorchDecoder(RefDecoder):
     def _swap_and_filter(self):
         # the device-side swap runs on the dispatch worker; here only the
         # entropy-context restore (sequential with the entropy thread)
-        self.frame_to_show = FrameFuture(self._pending)
+        self.frame_to_show = FrameFuture(self._pending, self)
         if not self.refresh_entropy:
             self.fc = self.lfc.copy()
 

@@ -19,8 +19,10 @@ neighbours, and a B_PRED MB's sub-blocks also read the above-right MB's
 bottom row. Then:
 
   * on the card, one launch of K5 (csrc/encode_wavefront.cu) encodes every
-    intra MB: MB rows in start order, MB (r,c) once row r-1 has finished
-    min(c+2, C) MBs, as K1 does (`encode_recon_planes`);
+    intra MB: MB rows in start order, a 16x16 MB (r,c) once row r-1 has
+    finished min(c+1, C) MBs, a B_PRED MB once it has finished min(c+2,
+    C), a run of consecutive B_PRED MBs as one sub-block wavefront
+    (`encode_recon_planes`);
   * the plain version (`_encode_planes_plain`, any device; the wrapper's
     choice for CPU tensors) walks the intra MBs in dependency levels
     (`intra_levels`): an intra MB waits only for those of its neighbours
@@ -31,9 +33,9 @@ bottom row. Then:
     MBs, and a level costs several hundred small tensor ops.
 
 Both give the JAX function's outputs; tests/test_torch_encode_rowlag.py
-shows that every lag-2 row order of `_encode_mb_step` gives the level
-batches' result, and that K5's diagonal sub-block order gives the raster
-one's.
+shows that every row order of `_encode_mb_step` under K5's per-MB lag
+gives the level batches' result, and that K5's sub-block steps over a
+run of B_PRED MBs give the plain version's.
 """
 from __future__ import annotations
 
@@ -151,10 +153,10 @@ def transform_quant_recon(src_y, src_u, src_v, pred_y, pred_u, pred_v,
                                       dq_y1, dq_y2, dq_uv)
 
 
-#: the order in which K5 runs a B_PRED MB's sub-blocks: the 10 diagonals
-#: 2*ir + ic, top row first within one (a sub-block reads only its left,
-#: above and above-right neighbours, so any such order gives the raster
-#: order's result)
+#: the order in which K5 runs a lone B_PRED MB's sub-blocks: the 10
+#: diagonals 2*ir + ic, top row first within one (a sub-block reads only
+#: its left, above and above-right neighbours, so any such order gives the
+#: raster order's result)
 BPRED_DIAG_ORDER = tuple(4 * ir + d - 2 * ir for d in range(10)
                          for ir in range(4) if 0 <= d - 2 * ir <= 3)
 

@@ -297,7 +297,7 @@ def count_modes_native(lib, enc):
     ymode_ct = np.zeros(5, np.int64)
     uv_ct = np.zeros(4, np.int64)
     flat = np.zeros(2 * 32, np.int64)
-    lib.vp8e_count_modes(
+    rc = lib.vp8e_count_modes(
         enc.R, enc.C, _p(g["mode"], ctypes.c_int32),
         _p(g["reff"], ctypes.c_int32), _p(g["mv"], ctypes.c_int32),
         _p(g["bmode"], ctypes.c_int32), _p(g["bmv"], ctypes.c_int32),
@@ -305,6 +305,9 @@ def count_modes_native(lib, enc):
         _p(g["uvmode"], ctypes.c_int32),
         _p(ymode_ct, ctypes.c_int64), _p(uv_ct, ctypes.c_int64),
         _p(flat, ctypes.c_int64))
+    if rc == -2:
+        raise ValueError("an MV delta is odd: VP8 codes MVs in quarter "
+                         "pels (even 1/8 units)")
     mvstats = []
     for comp in range(2):
         o = flat[comp * 32:(comp + 1) * 32]
@@ -321,7 +324,8 @@ def count_modes_native(lib, enc):
 def pack_modes_native(lib, enc, first, keyframe):
     """Real mode-section pack in C++, continuing BoolEncoder `first`'s
     in-progress partition-0 stream.  Returns True on success (first's
-    state advanced), False to fall back to Python."""
+    state advanced), False to fall back to Python (the buffer would
+    overflow); raises ValueError on an odd MV delta."""
     g = _mode_grids(enc)
     R, C = enc.R, enc.C
     cap = len(first.buf) + (R + 1) * (C + 1) * 64 + 65536
@@ -352,6 +356,9 @@ def pack_modes_native(lib, enc, first, keyframe):
         _p(ymp, ctypes.c_uint8), _p(uvp, ctypes.c_uint8),
         _p(mvc, ctypes.c_uint8), _p(buf, ctypes.c_uint8), cap,
         _p(state, ctypes.c_int64))
+    if rc == -2:
+        raise ValueError("an MV delta is odd: VP8 codes MVs in quarter "
+                         "pels (even 1/8 units)")
     if rc < 0:
         return False
     first.lowvalue = int(state[0])

@@ -2,27 +2,38 @@
 with the plain version (the CUDA kernel cannot run here).
 
 csrc/encode_wavefront.cu gives MB rows to thread blocks in start order; a
-block walks its row's intra MBs left to right, and MB (r,c) starts once
-row r-1 has finished min(c+2, C) MBs (the above-right MB too: a B_PRED MB
-reads its bottom row). Here random orders that keep that rule apply the
+block walks its row's intra MBs left to right. A 16x16 MB (r,c) starts
+once row r-1 has finished min(c+1, C) MBs, a B_PRED MB once it has
+finished min(c+2, C) (the above-right MB too: a B_PRED MB reads its bottom
+row); inter MBs are done before the launch. Here random orders that keep
+that rule (and, as a stricter one, a lag of 2 for every MB) apply the
 plain per-MB step (models/wavefront.py:_encode_mb_step) one intra MB at a
 time, after the frame's inter batch, and must give exactly the six outputs
 of the plain level-batch version (the specification, which
 tests/test_torch_encode_wavefront.py and tests/test_torch_bpred.py hold
-against the JAX function). The control: a lag-1 order gives a different
-frame once a B_PRED MB's above-right neighbour is intra.
+against the JAX function). The control: a lag-1 order for every MB gives a
+different frame once a B_PRED MB's above-right neighbour is intra.
 
-K5 runs a B_PRED MB's sixteen sub-blocks in ten diagonal steps
-(BPRED_DIAG_ORDER); that order gives the raster order's result, and one
-that runs sub-block (1,1) before its above-right neighbour (0,2) does not.
+K5 runs a run of consecutive B_PRED MBs of a row as one sub-block
+wavefront: sub-block (ir, j), j = 4c + ic, at step j + 2 ir. A helper here
+does the same, one sub-block at a time with its edges read from the plane
+at that moment (_bpred_lanes' arithmetic), and must equal the plain
+version; an order that runs sub-block (ir, 0) of an MB before (ir, 3) of
+the MB on its left does not. The diagonal order of one MB's sixteen
+sub-blocks (BPRED_DIAG_ORDER, the order a lone B_PRED MB takes) gives the
+raster order's result, and one that runs sub-block (1,1) before its
+above-right neighbour (0,2) does not. chip_smoke.k5_chain counts the
+kernel's dependent steps under that schedule.
 
 Two recipes are written here as numpy in the kernel's operation order and
 held against the plain functions: the sub-mode pick's rdc (float32
 product, sum and quotient each rounded, the floor, then one float64 sum
 rounded to float32 once) over SSEs from 0 to 16 * 255^2 at the encoder's
-rdmult/rddiv of every qindex; and the regular quantizer as K5 runs it, one
-coefficient per lane (the reciprocal product as an unsigned 32-bit product,
-the zero-run carry as a chain over per-position thresholds), over
+rdmult/rddiv of every qindex; and the regular quantizer as K5 runs it: its
+constants made once per MB from the factors and the qindex alone (zbin,
+rnd, the reciprocal and its shift, the 16 boost thresholds), then one
+coefficient per lane (the reciprocal product as an unsigned 32-bit
+product, the zero-run carry as a chain over per-position thresholds), over
 coefficients near the dead zone, large ones and ones whose product wraps,
 at every qindex's Y1, Y2 and UV quantizers.
 
@@ -30,13 +41,17 @@ On CPU tensors the wrapper runs the plain version and launches nothing; on
 a card (tests marked `cuda`, skipped without one) K5 equals the plain
 version.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from libvpx_opencl_tpu_torch.models import rdopt
 from libvpx_opencl_tpu_torch.models import wavefront as twf
 from libvpx_opencl_tpu_torch.models.refdec import dequant_factors
+from libvpx_opencl_tpu_torch.ops import predict as P
 from libvpx_opencl_tpu_torch.ops import rd_device as RD
 from libvpx_opencl_tpu_torch.ops import tables as T
 from libvpx_opencl_tpu_torch.ops import transforms as tf
@@ -98,13 +113,21 @@ def _case(seed, R, C, qindex, intra_share, bpred_share, with_top):
 
 def _order(rng, R, C, lag, greedy=False):
     """An order of all MBs in which row r takes column c only once row r-1
-    has finished min(c+lag, C) MBs, in order within a row: random, or
-    always the last row that may go (greedy, the most eager order)."""
+    has finished min(c + lag(r, c), C) MBs (`lag` a number or a function
+    of (r, c); None: no wait), in order within a row: random, or always
+    the last row that may go (greedy, the most eager order)."""
+    lag_of = lag if callable(lag) else (lambda r, c: lag)
     done = [0] * R
     order = []
+
+    def may_go(r):
+        if done[r] >= C:
+            return False
+        k = lag_of(r, done[r])
+        return r == 0 or k is None or done[r - 1] >= min(done[r] + k, C)
+
     while len(order) < R * C:
-        ok = [r for r in range(R) if done[r] < C and
-              (r == 0 or done[r - 1] >= min(done[r] + lag, C))]
+        ok = [r for r in range(R) if may_go(r)]
         r = ok[-1] if greedy else ok[rng.integers(len(ok))]
         order.append((r, done[r]))
         done[r] += 1
@@ -136,19 +159,49 @@ def _assert_same(got, want):
         assert torch.equal(g, w), name
 
 
-@pytest.mark.parametrize("qindex", QINDEX)
-@pytest.mark.parametrize("R,C", GEOMS)
-def test_lag2_orders_match_levels(R, C, qindex):
+@functools.lru_cache(maxsize=None)
+def _level_case(R, C, qindex):
+    """The inputs of geometry (R, C) at `qindex` and the plain version's
+    outputs on them (the row-order tests share them)."""
     i, j = GEOMS.index((R, C)), QINDEX.index(qindex)
     intra_share, bpred_share = SHARES[(i + j) % len(SHARES)]
     seed = 1000 * R + 10 * C + qindex
     args, kw = _case(seed, R, C, qindex, intra_share, bpred_share,
                      with_top=(i + j) % 2 == 0)
-    want = twf._encode_planes_plain(R, C, *args, **kw)
+    return seed, args, kw, twf._encode_planes_plain(R, C, *args, **kw)
+
+
+@pytest.mark.parametrize("qindex", QINDEX)
+@pytest.mark.parametrize("R,C", GEOMS)
+def test_lag2_orders_match_levels(R, C, qindex):
+    seed, args, kw, want = _level_case(R, C, qindex)
     got = _run_order(R, C, args, kw,
                      _order(np.random.default_rng(seed), R, C, lag=2))
     _assert_same(got, want)
     assert int((want[0] != 0).sum()) > 0
+
+
+def _kernel_lag(args, C):
+    """K5's lag per MB: 2 for a B_PRED MB, 1 for another intra MB, no
+    wait for an inter MB (done before the launch)."""
+    mode, intra = args[6].numpy(), args[8].numpy().astype(bool)
+
+    def lag(r, c):
+        n = r * C + c
+        return None if not intra[n] else (2 if mode[n] == W.B_PRED_M else 1)
+    return lag
+
+
+@pytest.mark.parametrize("qindex", QINDEX)
+@pytest.mark.parametrize("R,C", GEOMS)
+def test_per_mb_lag_orders_match_levels(R, C, qindex):
+    """Random and most eager orders under K5's per-MB lag, on the lag-2
+    test's inputs."""
+    seed, args, kw, want = _level_case(R, C, qindex)
+    lag = _kernel_lag(args, C)
+    for order in (_order(np.random.default_rng(seed + 1), R, C, lag),
+                  _order(None, R, C, lag, greedy=True)):
+        _assert_same(_run_order(R, C, args, kw, order), want)
 
 
 def test_lag1_order_differs():
@@ -159,6 +212,144 @@ def test_lag1_order_differs():
     want = twf._encode_planes_plain(R, C, *args, **kw)
     got = _run_order(R, C, args, kw, _order(None, R, C, lag=1, greedy=True))
     assert any(not torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _subblock(plane, C, r, c, ir, ic, src, dq, qidx, kw, top_interior):
+    """Encode sub-block (ir, ic) of B_PRED MB (r, c) in place, its edge read
+    from the plane now (the MB's above row, above-right and frame-edge
+    values as _bpred_lanes' workspace has them), with _bpred_lanes'
+    arithmetic. Returns (levels [16], eob, sub-mode)."""
+    b = W.BORDER
+    rr, cc = torch.tensor([r]), torch.tensor([c])
+    y0, x0, above, left, tl = W._edges(plane, b, 16, rr, cc, top_interior)
+    ar = W.above_right(plane, C, rr, cc, y0, x0, above, top_interior)
+    row0 = torch.cat([tl[:, None], above, ar], 1)[0]      # pixels -1..19
+    py, px = b + 16 * r + 4 * ir, b + 16 * c + 4 * ic
+
+    def pix(y, x):
+        return plane[y, x].to(torch.int32)
+    if ir == 0:
+        above8 = row0[1 + 4 * ic:9 + 4 * ic]
+    else:
+        above8 = pix(py - 1, slice(px, px + 8)).clone()
+        if ic == 3:
+            above8[4:] = ar[0]
+    left4 = left[0, 4 * ir:4 * ir + 4] if ic == 0 and c == 0 else \
+        pix(slice(py, py + 4), px - 1)
+    corner = row0[4 * ic] if ir == 0 else (
+        left[0, 4 * ir - 1] if ic == 0 and c == 0 else pix(py - 1, px - 1))
+    preds = P.bpred_4x4_all(above8[None], left4[None], corner.reshape(1))
+    resid = src[None, None, 4 * ir:4 * ir + 4, 4 * ic:4 * ic + 4] - preds
+    sse = (resid * resid).sum((-1, -2))
+    best = torch.argmin(RD.rdc(kw["bmode_cost"][:, None], sse, kw["rdmult"],
+                               kw["rddiv"]), 0)
+    q, e = tf.regular_quant_batch(
+        tf.fdct4x4_batch(resid[best, 0]).reshape(1, 16), dq[None],
+        qidx.reshape(1), False)
+    dqv = RD._dq_vec(dq[None]).to(torch.int32)
+    rec = preds[best, 0] + tf.idct4x4_batch(tf._s16(q * dqv).reshape(1, 4, 4))
+    plane[py:py + 4, px:px + 4] = rec[0].clamp(0, 255).to(torch.uint8)
+    return q[0], e[0], best[0]
+
+
+def _run_pipelined(R, C, args, kw, left_first=False):
+    """The frame's inter batch, then each row left to right: a 16x16 MB
+    through _encode_mb_step, a run of B_PRED MBs as K5 runs it (sub-block
+    (ir, j) at step j + 2 ir); with left_first, sub-block (ir, 0) of each
+    MB after the run's first goes two steps early, before (ir, 3) of the
+    MB on its left. A B_PRED MB's chroma comes from _encode_mb_step as a
+    16x16 MB at the start of the run, whose luma the sub-blocks then
+    overwrite before anything reads it."""
+    srcs, inters = args[0:3], args[3:6]
+    mode, uv_mode, intra = args[6:9]
+    dqs = args[9:13]
+    top = kw.get("top")
+    planes, out, intra_np, bpred_np = twf._frame_setup(
+        R, C, srcs, inters, mode, intra, dqs, None, kw["bmode_cost"], top)
+    for r in range(R):
+        c = 0
+        while c < C:
+            n = r * C + c
+            if not intra_np[n]:
+                c += 1
+                continue
+            e = c + 1
+            if bpred_np[n]:
+                while e < C and bpred_np[r * C + e]:
+                    e += 1
+            for m in range(c, e):
+                twf._encode_mb_step(C, planes, out, srcs, dqs, mode, uv_mode,
+                                    torch.tensor([r * C + m]), 0,
+                                    top_interior=top is not None)
+            if not bpred_np[n]:
+                c = e
+                continue
+            subs = []
+            for j in range(4 * (e - c)):
+                for ir in range(4):
+                    early = left_first and j % 4 == 0 and j > 0
+                    subs.append((j + 2 * ir - 2 * early, ir, j))
+            for _, ir, j in sorted(subs):
+                m, ic = c + j // 4, j % 4
+                nm = r * C + m
+                q, eob, best = _subblock(
+                    planes[0], C, r, m, ir, ic, srcs[0][nm], dqs[0][nm],
+                    dqs[3][nm], kw, top is not None)
+                k = 4 * ir + ic
+                out[0][nm, k], out[1][nm, k], out[2][nm, k] = q, eob, best
+            nb = slice(r * C + c, r * C + e)
+            out[0][nb, 24] = 0
+            out[1][nb, 24] = 0
+            c = e
+    return out[:2] + planes + out[2:]
+
+
+# (R, C, qindex, intra share, B_PRED share, top row)
+PIPELINE_CASES = [(2, 6, 24, 1.0, 1.0, False), (3, 5, 4, 0.9, 0.7, True),
+                  (2, 7, 127, 0.8, 0.8, True), (1, 4, 48, 1.0, 0.6, False)]
+
+
+@pytest.mark.parametrize("R,C,qindex,ish,bsh,with_top", PIPELINE_CASES)
+def test_bpred_runs_in_subblock_steps_match_plain(R, C, qindex, ish, bsh,
+                                                  with_top):
+    args, kw = _case(3000 + 100 * R + C + qindex, R, C, qindex, ish, bsh,
+                     with_top)
+    want = twf._encode_planes_plain(R, C, *args, **kw)
+    _assert_same(_run_pipelined(R, C, args, kw), want)
+
+
+def test_subblock_before_its_left_neighbour_differs():
+    """Every MB intra and B_PRED: sub-block (ir, 0) of MB c+1 before
+    (ir, 3) of MB c reads a left edge that is not final yet."""
+    args, kw = _case(8, 2, 5, 24, 1.0, 1.0, with_top=False)
+    want = twf._encode_planes_plain(2, 5, *args, **kw)
+    got = _run_pipelined(2, 5, args, kw, left_first=True)
+    assert any(not torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k5_chain_counts_the_schedule():
+    """chip_smoke.k5_chain on small grids: 16x16 MBs one step each after
+    min(c+1, C) MBs of the row above, a run of k B_PRED MBs 4k + 6 steps
+    whose MB m enters at step 4m after min(c+2, C) MBs above."""
+    def chain(R, C, intra, bpred=None):
+        return chip_smoke.k5_chain(np, R, C, np.asarray(intra, bool),
+                                   None if bpred is None
+                                   else np.asarray(bpred, bool))
+    ones = np.ones
+    assert chain(68, 120, ones(68 * 120)) == 187
+    assert chain(5, 7, ones(35)) == 4 + 7
+    assert chain(3, 4, np.zeros(12)) == 0
+    assert chain(1, 5, ones(5), ones(5)) == 4 * 5 + 6
+    assert chain(3, 1, ones(3), ones(3)) == 3 * 10
+    # row r starts once row r-1's MB 1 is done, 14 steps into its run
+    assert chain(2, 2, ones(4), ones(4)) == 14 + 4 * 2 + 6
+    assert chain(3, 6, ones(18), ones(18)) == 2 * 14 + 4 * 6 + 6
+    # a 16x16 MB between two runs: 10 + 1 + 10
+    assert chain(1, 3, ones(3), [1, 0, 1]) == 21
+    # 16x16 MBs below a run wait for min(c+1, C) MBs of it
+    assert chain(2, 2, ones(4), [1, 1, 0, 0]) == 15
+    # an inter MB breaks a run and waits for nothing
+    assert chain(1, 3, [1, 0, 1], [1, 0, 1]) == 20
 
 
 def _bpred_inputs(seed, M=8, C=3):
@@ -224,23 +415,35 @@ def test_k5_rdc_recipe():
         np.testing.assert_array_equal(got, want.numpy(), err_msg=f"q{q}")
 
 
-def _k5_quantize(coef, dq_dc, dq_ac, qidx, first0):
-    """K5's quantize(): coef [M,16] int32 raster (a lane per position);
-    dq_dc, dq_ac, qidx [M] int32; first0 [M] bool."""
-    pos = np.arange(16)
-    dq = np.where(pos == 0, dq_dc[:, None], dq_ac[:, None]).astype(np.int32)
+def _k5_qconst(dq_dc, dq_ac, qidx):
+    """K5's quantizer constants of one block type, made once per MB from
+    its factors and qindex alone: [M, 24] int32 rows of zbin, rnd, quant,
+    shift (each for the DC, then the AC factor) and the 16 boost
+    thresholds (QConst in csrc/encode_wavefront.cu)."""
+    dq = np.stack([dq_dc, dq_ac], 1).astype(np.int32)            # [M, 2]
     zf = np.where(qidx < 48, 84, 80).astype(np.int32)[:, None]
     zbin = (zf * dq + 64) >> 7
     rnd = (48 * dq) >> 7
     shift = sum((dq >= (1 << k)).astype(np.int32) for k in range(1, 10))
     quant = (1 + (np.int32(1 << 16) << shift) // dq - (1 << 16)) \
         .astype(np.int32)
+    boost = (dq_ac[:, None] * ZBIN_BOOST[None, :]) >> 7
+    return np.concatenate([zbin, rnd, quant, shift, boost], 1) \
+        .astype(np.int32)
+
+
+def _k5_quantize(coef, qc, first0):
+    """K5's quantize(): coef [M,16] int32 raster (a lane per position); qc
+    [M, 24] the block type's constants (_k5_qconst); first0 [M] bool."""
+    d = (np.arange(16) > 0).astype(np.int64)            # DC lane 0, AC else
+    zbin, rnd = qc[:, 0 + d], qc[:, 2 + d]
+    quant, shift = qc[:, 4 + d], qc[:, 6 + d]
     x = np.abs(coef)
     xq = x + rnd
     prod = (xq.astype(np.uint32) * quant.astype(np.uint32)).astype(np.int32)
     cand = np.minimum(((prod >> 16) + xq) >> shift, 2047)
     slack = x - zbin
-    boost = (dq_ac[:, None] * ZBIN_BOOST[None, :]) >> 7          # [M, z]
+    boost = qc[:, 8:]                                             # [M, z]
     cnt = (slack[:, :, None] >= boost[:, None, :]).sum(-1)        # [M, pos]
     skip = first0[:, None] & (INV_ZZ == 0)[None, :]
     thr = np.where((cand > 0) & ~skip, cnt, 0)
@@ -258,8 +461,9 @@ def _k5_quantize(coef, dq_dc, dq_ac, qidx, first0):
 
 
 def test_k5_quantizer_recipe():
-    """K5's lane-parallel quantizer == regular_quant_batch at every
-    qindex, on Y1 (with and without Y2), Y2 and UV quantizers."""
+    """K5's lane-parallel quantizer over its per-MB constants ==
+    regular_quant_batch at every qindex, on Y1 (with and without Y2), Y2
+    and UV quantizers."""
     rng = np.random.default_rng(12)
     per = 48
     dcs, acs, qs, f0 = [], [], [], []
@@ -284,7 +488,14 @@ def test_k5_quantizer_recipe():
     mag = np.where(huge, rng.integers(100000, 1 << 20, (M, 16)), mag)
     mag = np.where(rng.random((M, 16)) < 0.3, 0, mag)
     coef = np.where(rng.random((M, 16)) < 0.5, -mag, mag).astype(np.int32)
-    got_q, got_e = _k5_quantize(coef, dq_dc, dq_ac, qidx, first0)
+    qc = _k5_qconst(dq_dc, dq_ac, qidx)
+    # the constants depend on the factors and the qindex only: one row per
+    # (qindex, block type) serves every block of an MB
+    key = np.stack([dq_dc, dq_ac, qidx], 1)
+    _, first, inverse = np.unique(key, axis=0, return_index=True,
+                                  return_inverse=True)
+    np.testing.assert_array_equal(qc, qc[first][inverse.reshape(-1)])
+    got_q, got_e = _k5_quantize(coef, qc, first0)
     want_q, want_e = tf.regular_quant_batch(
         _t(coef), _t(np.stack([dq_dc, dq_ac], 1)), _t(qidx), _t(first0))
     np.testing.assert_array_equal(got_q, want_q.numpy())

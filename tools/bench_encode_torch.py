@@ -74,13 +74,14 @@ def encode_torch(frames, args):
                             cpu_used=args.cpu_used, device=device)
 
     # warm-up: every frame kind (KF + inter at reference-ring
-    # cardinalities 1/2/3; refresh flags steer the identity dedup)
+    # cardinalities 1/2/3; refresh flags steer the identity dedup), on the
+    # clip's frames 0-2 or, in a shorter clip, its last frame
     enc = new_encoder()
+    f1, f2 = frames[min(1, len(frames) - 1)], frames[min(2, len(frames) - 1)]
     enc.encode_frame(*frames[0], keyframe=True)
-    enc.encode_frame(*frames[1], keyframe=False)          # 2 refs
-    enc.encode_frame(*frames[2], keyframe=False,
-                     refresh_golden=True)                 # gold != alt
-    enc.encode_frame(*frames[1], keyframe=False)          # 3 refs
+    enc.encode_frame(*f1, keyframe=False)                 # 2 refs
+    enc.encode_frame(*f2, keyframe=False, refresh_golden=True)  # gold != alt
+    enc.encode_frame(*f1, keyframe=False)                 # 3 refs
     enc = new_encoder()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -105,6 +106,8 @@ def main(argv=None):
                     help="skip the reference vpxenc rows")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.frames < 1:
+        ap.error("--frames must be at least 1")
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise SystemExit("bench_encode_torch: no CUDA card; pass "
