@@ -32,8 +32,9 @@ code != 0). It prints, in order:
     runs (1-3 and 4-12 MBs long) broken by 16x16 and inter MBs: all six
     outputs exact;
   * K6 (the trellis) vs its plain version on random MBs (trellis_case) at
-    Ni = 1, 31 and 8160 inter MBs, qindex 0, 4, 24, 63 and 127, levels up
-    to 2047 (cat6), all-zero and eob-16 blocks: levels and eobs exact;
+    Ni = 1, 31, 32, 33, 2250 and 8160 inter MBs, qindex 0, 4, 24, 63 and
+    127, levels up to 2047 (cat6), all-zero and eob-16 blocks: levels and
+    eobs exact;
   * the 1080p decode: MD5 of every frame; K1 launched once per frame, K2
     once per frame with a filter level;
   * the six extra streams' MD5 results;
@@ -92,7 +93,8 @@ code != 0). It prints, in order:
     keyframe, checked), its us per step and its bound;
     K6 vs plain on the trellis inputs of inter frames 1 and 2 (levels and
     eobs exact; the plain version's time) and K6's launch alone on every
-    inter frame's inputs (CUDA events, median of 3) with its bound; then a
+    inter frame's inputs (CUDA events, median of 3, queued behind a sleep
+    kernel, and from an idle card) with its bound; then a
     second encode of the first two frames timing the B_PRED decision
     candidate, the encode wavefront, K5 inside it and the trellis (K6
     through its wrapper), each synchronised, with K6's time beside the
@@ -162,9 +164,12 @@ K5_RUNS = [(1, 3), (4, 12)]
 # K5 vs plain on these frames of the default-feature 1080p encode: the
 # keyframe (all 16x16), inter frame 1 and inter frame 3 (5110 B_PRED MBs)
 K5_PLAIN_FRAMES = (0, 1, 3)
-# K6 vs plain on random MBs: inter MB counts (8160: every MB of a 1080p
-# frame) and qindex values from the smallest quantizer to the largest
-K6_NI = [1, 31, 8160]
+# K6 vs plain on random MBs: inter MB counts (a warp tile holds 32 blocks:
+# 1, 31, 32 and 33 MBs end their tiles differently; 2250: a default inter
+# frame's most; 8160: every MB of a 1080p frame, more tiles than the
+# persistent grid has warps) and qindex values from the smallest quantizer
+# to the largest
+K6_NI = [1, 31, 32, 33, 2250, 8160]
 K6_QINDEX = [0, 4, 24, 63, 127]
 # bytes per frame of the default-feature 1080p encode of frames 0-9 at
 # qindex 24: the encode is deterministic, and the trellis's levels decide
@@ -2058,19 +2063,27 @@ def main():
         k6_vs_plain(torch, f"1080p default-feature inter frame {i + 1}",
                     k6_inputs[i], err, k6_plain_ms)
     plain_ms["k6"] = k6_plain_ms
-    k6_alone, k6_bounds, k6_ni = [], [], []
+    # K6's launch alone is queued behind a ~50 us sleep kernel, so that
+    # its events hold the kernel and not the host's launch path (a few us
+    # of kernel against tens of us of Python and ctypes); from an idle
+    # card, as K6 was timed before its redesign, for comparison
+    k6_alone, k6_idle, k6_bounds, k6_ni = [], [], [], []
     for a in k6_inputs:
         ins = RD.k6_inputs(*a)
         out = (torch.empty_like(ins[0]), torch.empty_like(ins[2]))
-        ts = []
+        ts, ts_idle = [], []
         for _ in range(3):
-            torch.cuda.synchronize()
-            e0.record()
-            RD.k6_launch(ins, out)
-            e1.record()
-            torch.cuda.synchronize()
-            ts.append(e0.elapsed_time(e1))
+            for queued, got in ((True, ts), (False, ts_idle)):
+                torch.cuda.synchronize()
+                if queued:
+                    torch.cuda._sleep(100_000)
+                e0.record()
+                RD.k6_launch(ins, out)
+                e1.record()
+                torch.cuda.synchronize()
+                got.append(e0.elapsed_time(e1))
         k6_alone.append(statistics.median(ts))
+        k6_idle.append(statistics.median(ts_idle))
         # bytes: coefs, levels, eobs and dequantizers read once, levels and
         # eobs written once, the tables once; ops: ~60 integer and float
         # operations per backward step over the positions each block's
@@ -2079,7 +2092,7 @@ def main():
         ni = a[0].shape[0]
         k6_ni.append(ni)
         byts = ni * (2 * 1600 + 100 + 24 + 1600 + 100) + \
-            (3 * 576 + 2 * RD._N_VALUES) * 4 + 8
+            3 * 576 * 4 + 3 * RD._N_VALUES + 8
         first = torch.cat([torch.ones(16, dtype=torch.int32),
                            torch.zeros(9, dtype=torch.int32)]).to(dev)
         steps = int((a[2] - first).clamp(min=0).sum())
@@ -2091,9 +2104,12 @@ def main():
           f"levels and eobs exact; plain {k6_plain_ms[0]:.1f} / "
           f"{k6_plain_ms[1]:.1f} ms [{card}]", flush=True)
     print(f"K6 trellis: {k_ms['k6']:.4f} ms/frame alone on each "
-          f"default-feature 1080p inter frame's inputs "
-          f"({[round(x, 4) for x in k6_alone]} ms at "
-          f"{k6_ni} inter MBs; {statistics.mean(k6_enc):.4f} ms/frame by "
+          f"default-feature 1080p inter frame's inputs, queued behind a "
+          f"sleep kernel ({[round(x, 4) for x in k6_alone]} ms at "
+          f"{k6_ni} inter MBs; from an idle card "
+          f"{statistics.mean(k6_idle):.4f} ms/frame, "
+          f"{[round(x, 4) for x in k6_idle]}; "
+          f"{statistics.mean(k6_enc):.4f} ms/frame by "
           f"events in the encoder), 1 launch/inter frame; bound "
           f"{[round(max(b) * 1e3, 4) for b in k6_bounds]} ms by "
           f"{'bytes' if k6_bounds[0][0] >= k6_bounds[0][1] else 'operations'}"

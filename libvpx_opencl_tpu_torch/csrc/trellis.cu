@@ -22,32 +22,45 @@
 // chroma plane, 0 for Y2. Output: levels [Ni,25,16] and eobs [Ni,25] (Y
 // eobs at least 1), as ops/rd_device.py:trellis_mbs_plain returns them.
 //
-// Design. A thread per 4x4 block: blocks never read each other's result, so
-// the only parallelism needed is across blocks, and 25 * Ni threads (56 k on
-// a 1080p inter frame with 2.25 k inter MBs) fill the card. Thread blocks
-// [0, yb) take the Y blocks (the i0 = 1 instantiation), the rest UV and Y2
-// (i0 = 0), so no warp runs both. The per-position chain (the candidate-1
-// level, both predecessor choices as 16-bit masks, the next non-zero
-// position) stays in registers: every loop runs over compile-time positions,
-// so no array is indexed at run time. The token-cost tables of the block's
-// planes and the value tables (token id and extra-bit cost of |level|, cat6
-// by its low 11 bits as ops/rd_device.py:_value_index) are staged once per
-// thread block into shared memory (21.5 KB).
+// Design. A thread per 4x4 block, 32 blocks per warp tile: the Y blocks
+// make tiles [0, yt) (blocks g = 32t + lane, MB g >> 4, block g & 15, the
+// i0 = 1 instantiation), UV and Y2 the rest (g = 32(t - yt) + lane, MB
+// g / 9, block 16 + g % 9, i0 = 0), so no warp runs both. The grid is
+// persistent: at most as many 128-thread blocks as the card holds at once,
+// each warp taking tiles t = warp, warp + warps, ... So the tables (the
+// three token-cost tables as int16, the value tables as int8 token ids and
+// int16 extra-bit costs, cat6 by its low 11 bits as
+// ops/rd_device.py:_value_index; 9.8 KB) are staged once per resident
+// block. A warp loads its tile's coefficients and levels cooperatively, a
+// lane per 16 bytes (the blocks of two to five MBs, in memory order), into a
+// shared-memory tile of 80-byte rows (conflict-free 16-byte reads of a
+// lane's own row); each lane then reads its own block from there, and its
+// levels go back through the same rows. The per-position chain stays in
+// registers over compile-time positions: the rates, errors and tokens of
+// the two candidates, and three 16-bit masks (each candidate's predecessor
+// choice, and where candidate 1 steps toward zero). Positions at or past
+// the eob change nothing and are skipped. The forward walk visits every
+// non-zero position (the chain links exactly those, in order), so it needs
+// no stored links.
 //
 // Arithmetic. Rates are int32: a step adds at most a value cost and a token
-// cost (each < 2^15 in the encoder's tables) to a rate, so 16 steps stay
-// below 2^20, under 2^24 where the float conversion inside rdc is exact. Errors are
-// int64, as in the plain version: (level*dq - coef)^2 passes 2^31 for
-// large levels. rdc follows rdcost.cuh, which keeps nvcc from contracting
-// a*b+c into an FMA.
+// cost (each < 2^15 in the encoder's tables, so int16 holds them) to a
+// rate, so 16 steps stay below 2^20, under 2^24 where the float conversion
+// inside rdc is exact. Errors are int64, as in the plain version:
+// (level*dq - coef)^2 passes 2^31 for large levels. rdc follows
+// rdcost.cuh, which keeps nvcc from contracting a*b+c into an FMA.
 //
 // What bounds it on the card. Per MB it reads 3.3 KB (coefficients,
 // levels, eobs, dequantizers) and writes 1.7 KB: ~11 MB on a 1080p inter
 // frame with 2.25 k inter MBs, ~3.4 us at 3.35 TB/s; its ~16 steps x ~60
-// operations per block are ~1 us at 67e12/s. Each thread's 16 steps are a dependent chain of
-// shared-table reads and float/double compares, so the kernel is latency
-// bound at this occupancy; tests/test_torch_trellis_k6.py emulates one
-// thread's loop in numpy against the plain version.
+// operations per block are ~1 us at 67e12/s. On an H100 80GB HBM3 at
+// 700 W the kernel takes 15-22 us on default 1080p inter frames
+// (tools/profile_k4_k6.py, queued behind other work): clock64 stamps in a
+// scratch build put ~60% of a warp's time in its backward chain, and the
+// SASS shows ~190 instructions per position with ~3 warps to a scheduler,
+// so it is bound by issuing them. Launched from an idle card, the host's
+// launch path adds ~16-20 us. tests/test_torch_trellis_k6.py emulates the
+// tile map and one thread's loop in numpy against the plain version.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -55,7 +68,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRow = 20;              // ints per block row of a tile
 constexpr int kEob = 11;              // EOB_TOKEN
 constexpr int kCat6Min = 67;          // first value of DCT_VAL_CATEGORY6
 constexpr int kCat6Span = 2048;       // cat6 extra-bit values
@@ -78,11 +93,11 @@ __device__ __forceinline__ void to_raster(const int (&z)[16], int (&r)[16]) {
   r[7] = z[12];  r[11] = z[13]; r[14] = z[14]; r[15] = z[15];
 }
 
-__device__ __forceinline__ void load16(const int32_t* p, int (&v)[16]) {
+__device__ __forceinline__ void load_row(const int* p, int (&v)[16]) {
   const int4* q = reinterpret_cast<const int4*>(p);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int4 w = __ldg(q + k);
+    const int4 w = q[k];
     v[4 * k] = w.x;
     v[4 * k + 1] = w.y;
     v[4 * k + 2] = w.z;
@@ -90,7 +105,7 @@ __device__ __forceinline__ void load16(const int32_t* p, int (&v)[16]) {
   }
 }
 
-__device__ __forceinline__ void store16(int32_t* p, const int (&v)[16]) {
+__device__ __forceinline__ void store_row(int* p, const int (&v)[16]) {
   int4* q = reinterpret_cast<int4*>(p);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
@@ -104,10 +119,10 @@ __device__ __forceinline__ int value_index(unsigned a) {
 }
 
 struct Tables {
-  const int* tcb;   // this block's plane, [16][3][12]
-  const int* tok;   // token id of a value index
-  const int* val;   // extra-bit + sign cost of a value index
-  float rm;         // rdmult * plane factor
+  const int16_t* tcb;  // this block's plane, [16][3][12]
+  const int8_t* tok;   // token id of a value index
+  const int16_t* val;  // extra-bit + sign cost of a value index
+  float rm;            // rdmult * plane factor
   double rddiv;
 };
 
@@ -116,38 +131,44 @@ __device__ __forceinline__ float cost(const Tables& t, int rate,
   return rdcost(rdfloor((float)rate, t.rm), t.rddiv, (double)err);
 }
 
-// One block: coefficients cb and levels qb (raster), dequantizers, entropy
-// context; writes the chosen levels (raster) and returns their eob.
+// One block: coefficients cr and levels qr (raster), dequantizers, entropy
+// context; replaces qr with the chosen levels (raster) and returns their
+// eob.
 template <int I0>
-__device__ __forceinline__ int trellis_block(const int32_t* cb,
-                                             const int32_t* qb, int dq_dc,
+__device__ __forceinline__ int trellis_block(const int (&cr)[16],
+                                             int (&qr)[16], int dq_dc,
                                              int dq_ac, int ctx,
-                                             const Tables& t, int32_t* ob) {
+                                             const Tables& t) {
   int qz[16], cz[16];
-  {
-    int r[16];
-    load16(qb, r);
-    to_scan(r, qz);
-    load16(cb, r);
-    to_scan(r, cz);
-  }
+  to_scan(qr, qz);
+  to_scan(cr, cz);
   int eob = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) eob = qz[i] != 0 ? i + 1 : eob;
 
   // backward Viterbi: candidate c = 0 keeps the level, c = 1 steps it
-  // toward zero where `shortcut` holds
+  // toward zero where `shortcut` holds (bit i of sc)
   int rate0 = 0, rate1 = 0, tok0 = kEob, tok1 = kEob, next = eob;
   long long err0 = 0, err1 = 0;
-  int qc1[16], nxtp[16];
-  unsigned bb0 = 0, bb1 = 0;
+  unsigned bb0 = 0, bb1 = 0, sc = 0;
 #pragma unroll
   for (int i = 15; i >= I0; --i) {
-    const int* tn = t.tcb + (i < 15 ? i + 1 : 15) * 36;
+    if (i >= eob) continue;   // changes nothing
+    const int16_t* tn = t.tcb + (i < 15 ? i + 1 : 15) * 36;
     const int x = qz[i];
+    if (x == 0) {
+      // a zero inside the eob: fold the ZERO token
+      if (tok0 != kEob) {
+        rate0 += tn[tok0];
+        tok0 = 0;
+      }
+      if (tok1 != kEob) {
+        rate1 += tn[tok1];
+        tok1 = 0;
+      }
+      continue;
+    }
     const int drc = i == 0 ? dq_dc : dq_ac;
-    const bool active = i < eob;
-    const bool is_nz = active && x != 0, is_z = active && x == 0;
     const int ax = abs(x);
     const bool g0 = next < 16;
     // candidate 0: keep the level
@@ -175,59 +196,53 @@ __device__ __forceinline__ int trellis_block(const int32_t* cb,
     const int r11 = rate1 + (g0 && tb1 != kEob ? tn[pt1 * 12 + tok1] : 0);
     const bool best1 = cost(t, r11, err1) < cost(t, r10, err0);
     const long long dx1 = shortcut ? dx - (long long)sgn * drc : dx;
-    const int nrate1 = t.val[vi1] + (best1 ? r11 : r10);
-    const long long nerr1 = dx1 * dx1 + (best1 ? err1 : err0);
-    const int ntok1 = best1 ? tb1 : tb0;
-    // the chain: candidate 1's level (candidate 0's is qz[i]), both
-    // predecessor choices, the next non-zero position
-    qc1[i] = is_nz ? x1 : 0;
+    rate1 = t.val[vi1] + (best1 ? r11 : r10);
+    err1 = dx1 * dx1 + (best1 ? err1 : err0);
+    tok1 = best1 ? tb1 : tb0;
+    rate0 = nrate0;
+    err0 = nerr0;
+    tok0 = t.tok[vi0];
+    next = i;
     bb0 |= (unsigned)best0 << i;
     bb1 |= (unsigned)best1 << i;
-    nxtp[i] = next;
-    if (is_nz) {
-      rate0 = nrate0;
-      rate1 = nrate1;
-      err0 = nerr0;
-      err1 = nerr1;
-      tok0 = t.tok[vi0];
-      tok1 = ntok1;
-      next = i;
-    }
-    // zero positions inside the eob: fold the ZERO token
-    if (is_z && tok0 != kEob) {
-      rate0 += tn[tok0];
-      tok0 = 0;
-    }
-    if (is_z && tok1 != kEob) {
-      rate1 += tn[tok1];
-      tok1 = 0;
-    }
+    sc |= (unsigned)shortcut << i;
   }
 
   // base transition at i0 under the true entropy context
-  const int* tb = t.tcb + I0 * 36 + ctx * 12;
+  const int16_t* tb = t.tcb + I0 * 36 + ctx * 12;
   bool br = cost(t, rate1 + tb[tok1], err1) < cost(t, rate0 + tb[tok0], err0);
 
-  // forward walk down the chosen chain. A hit is a non-zero position (the
-  // chain links only those), where candidate 0's level is qz[i].
+  // forward walk down the chosen chain: it visits every non-zero position
+  // from i0 on, taking candidate 1's level where the chain is on it
   int out[16];
 #pragma unroll
   for (int i = 0; i < I0; ++i) out[i] = qz[i];
-  int cur = next;
 #pragma unroll
   for (int i = I0; i < 16; ++i) {
-    const bool hit = cur == i && i < eob;
-    out[i] = hit ? (br ? qc1[i] : qz[i]) : 0;
+    const int x = qz[i];
+    const bool hit = x != 0;
+    const bool step = br && ((sc >> i) & 1u);
+    out[i] = step ? x - ((x > 0) - (x < 0)) : x;
     br = hit ? (((br ? bb1 : bb0) >> i) & 1u) != 0 : br;
-    cur = hit ? nxtp[i] : cur;
   }
   int eob_out = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) eob_out = out[i] != 0 ? i + 1 : eob_out;
-  int r[16];
-  to_raster(out, r);
-  store16(ob, r);
+  to_raster(out, qr);
   return eob_out;
+}
+
+// The tile's blocks: tile-local block j (0..31) is block g = g0 + j of its
+// set, which lies at MB m, block b.
+__device__ __forceinline__ void block_of(bool luma, int64_t g, int64_t& m,
+                                         int& b) {
+  if (luma) {
+    m = g >> 4;
+    b = (int)(g & 15);
+  } else {
+    m = g / 9;
+    b = 16 + (int)(g - m * 9);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -240,18 +255,20 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ tcb0,
                    const int32_t* __restrict__ tcb1,
                    const int32_t* __restrict__ tcb2,
-                   const int32_t* __restrict__ tok,
-                   const int32_t* __restrict__ val,
+                   const int8_t* __restrict__ tok,
+                   const int16_t* __restrict__ val,
                    const float* __restrict__ rdmult,
-                   const float* __restrict__ rddiv, int ni, int y_blocks,
-                   int32_t* __restrict__ qcoeff, int32_t* __restrict__ eobs) {
-  __shared__ int s_tcb[2][kTcb];   // Y: tcb0; else UV (tcb2), Y2 (tcb1)
-  __shared__ int s_tok[kValues];
-  __shared__ int s_val[kValues];
-  const bool luma = (int)blockIdx.x < y_blocks;   // uniform in the block
+                   const float* __restrict__ rddiv, int ni, int y_tiles,
+                   int tiles, int32_t* __restrict__ qcoeff,
+                   int32_t* __restrict__ eobs) {
+  __shared__ int16_t s_tcb[3][kTcb];   // tcb0 (Y), tcb1 (Y2), tcb2 (UV)
+  __shared__ int8_t s_tok[kValues];
+  __shared__ int16_t s_val[kValues];
+  __shared__ __align__(16) int s_tile[kWarps][2][32 * kRow];
   for (int k = threadIdx.x; k < kTcb; k += kThreads) {
-    s_tcb[0][k] = luma ? tcb0[k] : tcb2[k];
-    if (!luma) s_tcb[1][k] = tcb1[k];
+    s_tcb[0][k] = (int16_t)tcb0[k];
+    s_tcb[1][k] = (int16_t)tcb1[k];
+    s_tcb[2][k] = (int16_t)tcb2[k];
   }
   for (int k = threadIdx.x; k < kValues; k += kThreads) {
     s_tok[k] = tok[k];
@@ -259,42 +276,83 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const float rdm = *rdmult;
-  Tables t{s_tcb[0], s_tok, s_val, 0.0f, (double)*rddiv};
-  if (luma) {
-    const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (g >= (int64_t)ni * 16) return;
-    const int64_t m = g >> 4;
-    const int b = (int)(g & 15);
-    const int32_t* em = e0 + m * 25;
-    const int ctx =
-        (b >= 4 ? em[b - 4] > 1 : 0) + ((b & 3) ? em[b - 1] > 1 : 0);
-    t.rm = __fmul_rn(rdm, 4.0f);
-    const int64_t o = m * 25 + b;
-    const int e = trellis_block<1>(coefs + o * 16, q0 + o * 16, dq_y1[2 * m],
-                                   dq_y1[2 * m + 1], ctx, t, qcoeff + o * 16);
-    eobs[o] = e > 1 ? e : 1;
-  } else {
-    const int64_t g =
-        (int64_t)((int)blockIdx.x - y_blocks) * kThreads + threadIdx.x;
-    if (g >= (int64_t)ni * 9) return;
-    const int64_t m = g / 9;
-    const int b = 16 + (int)(g - m * 9);
-    const int32_t* em = e0 + m * 25;
-    const int32_t* dq;
-    int ctx = 0;
-    if (b < 24) {   // U or V: a 2x2 grid per plane
-      const int k = (b - 16) & 3;
-      ctx = (k >= 2 ? em[b - 2] > 0 : 0) + ((k & 1) ? em[b - 1] > 0 : 0);
-      dq = dq_uv + 2 * m;
-      t.rm = __fmul_rn(rdm, 2.0f);
-    } else {        // Y2
-      t.tcb = s_tcb[1];
-      dq = dq_y2 + 2 * m;
-      t.rm = __fmul_rn(rdm, 16.0f);
+  const double rdd = (double)*rddiv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* tc = s_tile[warp][0];
+  int* tq = s_tile[warp][1];
+  const int stride = gridDim.x * kWarps;
+  for (int t = blockIdx.x * kWarps + warp; t < tiles; t += stride) {
+    const bool luma = t < y_tiles;   // uniform in the warp
+    const int64_t g0 = (int64_t)(luma ? t : t - y_tiles) * 32;
+    const int64_t nblk = (int64_t)ni * (luma ? 16 : 9);
+    // the tile in: 32 blocks x 4 x 16 bytes per array, lane-consecutive
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int idx = 32 * k + lane, j = idx >> 2, part = idx & 3;
+      int64_t m;
+      int b;
+      block_of(luma, g0 + j, m, b);
+      if (g0 + j < nblk) {
+        const int64_t o = (m * 25 + b) * 16 + part * 4;
+        *reinterpret_cast<int4*>(tc + j * kRow + part * 4) =
+            __ldg(reinterpret_cast<const int4*>(coefs + o));
+        *reinterpret_cast<int4*>(tq + j * kRow + part * 4) =
+            __ldg(reinterpret_cast<const int4*>(q0 + o));
+      }
     }
-    const int64_t o = m * 25 + b;
-    eobs[o] = trellis_block<0>(coefs + o * 16, q0 + o * 16, dq[0], dq[1], ctx,
-                               t, qcoeff + o * 16);
+    __syncwarp();
+    const int64_t g = g0 + lane;
+    if (g < nblk) {
+      int64_t m;
+      int b;
+      block_of(luma, g, m, b);
+      const int32_t* em = e0 + m * 25;
+      int cr[16], qr[16];
+      load_row(tc + lane * kRow, cr);
+      load_row(tq + lane * kRow, qr);
+      Tables tb{s_tcb[0], s_tok, s_val, 0.0f, rdd};
+      int e;
+      if (luma) {
+        const int ctx =
+            (b >= 4 ? __ldg(em + b - 4) > 1 : 0) +
+            ((b & 3) ? __ldg(em + b - 1) > 1 : 0);
+        tb.rm = __fmul_rn(rdm, 4.0f);
+        e = trellis_block<1>(cr, qr, __ldg(dq_y1 + 2 * m),
+                             __ldg(dq_y1 + 2 * m + 1), ctx, tb);
+        e = e > 1 ? e : 1;
+      } else {
+        const int32_t* dq;
+        int ctx = 0;
+        if (b < 24) {   // U or V: a 2x2 grid per plane
+          const int k = (b - 16) & 3;
+          ctx = (k >= 2 ? __ldg(em + b - 2) > 0 : 0) +
+                ((k & 1) ? __ldg(em + b - 1) > 0 : 0);
+          dq = dq_uv + 2 * m;
+          tb.tcb = s_tcb[2];
+          tb.rm = __fmul_rn(rdm, 2.0f);
+        } else {        // Y2
+          dq = dq_y2 + 2 * m;
+          tb.tcb = s_tcb[1];
+          tb.rm = __fmul_rn(rdm, 16.0f);
+        }
+        e = trellis_block<0>(cr, qr, __ldg(dq), __ldg(dq + 1), ctx, tb);
+      }
+      store_row(tq + lane * kRow, qr);
+      eobs[m * 25 + b] = e;
+    }
+    // the tile out, as it came in
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int idx = 32 * k + lane, j = idx >> 2, part = idx & 3;
+      int64_t m;
+      int b;
+      block_of(luma, g0 + j, m, b);
+      if (g0 + j < nblk)
+        *reinterpret_cast<int4*>(qcoeff + (m * 25 + b) * 16 + part * 4) =
+            *reinterpret_cast<const int4*>(tq + j * kRow + part * 4);
+    }
   }
 }
 
@@ -303,27 +361,45 @@ __global__ void __launch_bounds__(kThreads)
 // coefs, q0 [ni,25,16] and e0 [ni,25] int32 as models/wavefront.py:
 // transform_quant returns them; dq_y1, dq_y2, dq_uv [ni,2] int32 (dc, ac);
 // tcb0/1/2 the banded token costs of block types 0 (Y with Y2), 1 (Y2), 2
-// (UV), [16,3,12] int32; tok, val the value tables (ops/rd_device.py:
-// _value_tables), [2115] int32; rdmult, rddiv float32 scalars on the card;
-// every pointer 16-byte aligned. Writes qcoeff [ni,25,16] and eobs [ni,25]
-// int32. ni > 0. One launch on `stream`; returns cudaGetLastError().
+// (UV), [16,3,12] int32 (each below 2^15); tok [2115] int8 and val [2115]
+// int16 the value tables (ops/rd_device.py:_k6_value_tables); rdmult,
+// rddiv float32 scalars on the card; coefs, q0 and qcoeff 16-byte
+// aligned. Writes qcoeff [ni,25,16] and eobs [ni,25] int32. ni > 0. One
+// launch on `stream` on the current device; returns cudaGetLastError()
+// (or the error of the device queries that size the grid).
 extern "C" int trellis(const void* coefs, const void* q0, const void* e0,
                        const void* dq_y1, const void* dq_y2,
                        const void* dq_uv, const void* tcb0, const void* tcb1,
                        const void* tcb2, const void* tok, const void* val,
                        const void* rdmult, const void* rddiv, int ni,
                        void* qcoeff, void* eobs, void* stream) {
-  const int y_blocks = (ni * 16 + kThreads - 1) / kThreads;
-  const int o_blocks = (ni * 9 + kThreads - 1) / kThreads;
-  trellis_kernel<<<y_blocks + o_blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  // blocks the card holds at once, per device (the first call's queries)
+  static int resident[64];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, trellis_kernel, kThreads, 0);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int y_tiles = (ni * 16 + 31) / 32;
+  const int tiles = y_tiles + (ni * 9 + 31) / 32;
+  const int need = (tiles + kWarps - 1) / kWarps;
+  const int grid = need < resident[dev] ? need : resident[dev];
+  trellis_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(coefs), static_cast<const int32_t*>(q0),
       static_cast<const int32_t*>(e0), static_cast<const int32_t*>(dq_y1),
       static_cast<const int32_t*>(dq_y2), static_cast<const int32_t*>(dq_uv),
       static_cast<const int32_t*>(tcb0), static_cast<const int32_t*>(tcb1),
-      static_cast<const int32_t*>(tcb2), static_cast<const int32_t*>(tok),
-      static_cast<const int32_t*>(val), static_cast<const float*>(rdmult),
-      static_cast<const float*>(rddiv), ni, y_blocks,
+      static_cast<const int32_t*>(tcb2), static_cast<const int8_t*>(tok),
+      static_cast<const int16_t*>(val), static_cast<const float*>(rdmult),
+      static_cast<const float*>(rddiv), ni, y_tiles, tiles,
       static_cast<int32_t*>(qcoeff), static_cast<int32_t*>(eobs));
   return static_cast<int>(cudaGetLastError());
 }

@@ -94,6 +94,15 @@ def _value_tables(device):
                          device=device))
 
 
+@functools.lru_cache(maxsize=None)
+def _k6_value_tables(device):
+    """`_value_tables` narrowed for K6's shared memory: token ids as int8
+    and value costs as int16 (each below 2^15), on `device`; made once per
+    device."""
+    tok, val = _value_tables(device)
+    return tok.to(torch.int8), val.to(torch.int16)
+
+
 def _value_index(a):
     """Index of |value| `a` into the value tables: the value itself below
     cat6, and cat6's low extra bits above (its cost reads no others)."""
@@ -407,9 +416,10 @@ def trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
 def k6_inputs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, rdmult,
               rddiv):
     """K6's checked inputs on the card, in its C entry point's order:
-    (coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, token table,
-    value-cost table, rdmult, rddiv). Raises ValueError on what the kernel
-    does not take."""
+    (coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, token table
+    int8, value-cost table int16, rdmult, rddiv). The value tables are made
+    once per card (`_k6_value_tables`). Raises ValueError on what the
+    kernel does not take."""
     dev = coefs.device
     m = coefs.shape[0]
     shapes = [(m, 25, 16), (m, 25, 16), (m, 25), (m, 2), (m, 2), (m, 2)] + \
@@ -425,7 +435,7 @@ def k6_inputs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2, rdmult,
     ins = [t.contiguous() for t in ins]
     if any(t.data_ptr() % 16 for t in ins[:2]):
         raise ValueError("trellis_mbs: coefs and q0 must be 16-byte aligned")
-    ins += list(_value_tables(dev))
+    ins += list(_k6_value_tables(dev))
     ins += [torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
             for x in (rdmult, rddiv)]
     return tuple(ins)

@@ -119,12 +119,79 @@ def _to_scan(a):
     return a[..., ZZ]
 
 
-def _k6_threads(ni):
-    """(MB, block) of each thread in launch order: the Y blocks' thread
-    blocks first (i0 = 1), then UV and Y2 (i0 = 0)."""
-    gy = np.arange(ni * 16)
-    go = np.arange(ni * 9)
-    return ((gy >> 4, gy & 15), (go // 9, 16 + go % 9))
+K6_WARPS = 4            # warps per thread block (kWarps in trellis.cu)
+
+
+def _k6_tiles(ni):
+    """(Y tiles, all tiles): 32 blocks a warp tile, the Y blocks' tiles
+    first (i0 = 1), then UV and Y2 (i0 = 0)."""
+    y_tiles = (ni * 16 + 31) // 32
+    return y_tiles, y_tiles + (ni * 9 + 31) // 32
+
+
+def _k6_tile_blocks(ni, t):
+    """The (MB, block) of lanes 0-31 of warp tile t, and which lanes hold
+    one (the tail of the last tile of a set holds fewer)."""
+    y_tiles, _ = _k6_tiles(ni)
+    luma = t < y_tiles
+    g = (t if luma else t - y_tiles) * 32 + np.arange(32)
+    if luma:
+        m, b = g >> 4, g & 15
+    else:
+        m, b = g // 9, 16 + g % 9
+    return m, b, g < ni * (16 if luma else 9)
+
+
+def _k6_grid(ni, resident):
+    """The launch's grid: as many blocks as the tiles need, at most the
+    blocks the card holds at once (the C entry point)."""
+    need = (_k6_tiles(ni)[1] + K6_WARPS - 1) // K6_WARPS
+    return min(need, resident)
+
+
+def _k6_warp_tiles(ni, grid):
+    """Tiles of each warp of a grid of `grid` blocks: warp w takes
+    w, w + warps, ... (the kernel's grid-stride loop)."""
+    tiles = _k6_tiles(ni)[1]
+    warps = grid * K6_WARPS
+    return [list(range(w, tiles, warps)) for w in range(warps)]
+
+
+def _k6_threads(ni, grid=None):
+    """(MB, block) of each thread's block, in the order the warps take
+    their tiles, split into the Y tiles' threads and the others'."""
+    grid = grid or _k6_grid(ni, 1 << 30)
+    y_tiles = _k6_tiles(ni)[0]
+    out = {True: ([], []), False: ([], [])}
+    for tiles in _k6_warp_tiles(ni, grid):
+        for t in tiles:
+            m, b, live = _k6_tile_blocks(ni, t)
+            out[t < y_tiles][0].append(m[live])
+            out[t < y_tiles][1].append(b[live])
+    return tuple((np.concatenate(out[k][0]), np.concatenate(out[k][1]))
+                 for k in (True, False))
+
+
+@pytest.mark.parametrize("ni", [1, 31, 32, 33, 2250])
+def test_k6_tile_map_covers_every_block_once(ni):
+    """The persistent grid-stride map: at several resident block counts
+    (one block, a few per SM of 132 SMs, more than the tiles need), every
+    (MB, block) of the ni MBs is some lane's exactly once, the Y blocks in
+    Y tiles only; a tile's lanes read its 64-byte blocks in memory order,
+    from at most five MBs (two for Y)."""
+    for resident in (1, 132, 4 * 132, 1 << 20):
+        grid = _k6_grid(ni, resident)
+        assert 1 <= grid <= resident
+        seen = np.zeros((ni, 25), np.int64)
+        for i0, (m, b) in zip((1, 0), _k6_threads(ni, grid)):
+            assert ((b < 16) == (i0 == 1)).all()
+            np.add.at(seen, (m, b), 1)
+        assert (seen == 1).all()
+    for t in range(_k6_tiles(ni)[1]):
+        m, b, live = _k6_tile_blocks(ni, t)
+        off = (m * 25 + b)[live]
+        assert len(np.unique(m[live])) <= 5
+        assert (np.diff(off) >= 1).all()
 
 
 def _k6_contexts(e0, m, b):
@@ -139,21 +206,30 @@ def _k6_contexts(e0, m, b):
     return np.where(b < 16, y, np.where(b < 24, uv, 0)).astype(np.int64)
 
 
+def _rdfloor(rate, rm):
+    """rdcost.cuh's rdfloor: float32 product and sum, then the product by
+    2^-8, each rounded, then the floor."""
+    x = np.float32(128.0) + rate.astype(np.float32) * rm
+    return np.floor(x * np.float32(0.00390625))
+
+
 def _rdcost(rate, err, rm, rddiv):
-    """rdcost.cuh: rdfloor's float32 product, sum and quotient each
-    rounded, the floor, then one float64 sum rounded to float32."""
-    fl = np.floor((np.float32(128.0) + rate.astype(np.float32) * rm)
-                  / np.float32(256.0))
-    return (fl.astype(np.float64) + np.float64(rddiv) *
+    """rdcost.cuh: rdfloor, then one float64 sum rounded to float32."""
+    return (_rdfloor(rate, rm).astype(np.float64) + np.float64(rddiv) *
             err.astype(np.float64)).astype(np.float32)
 
 
 def _k6_block(i0, cb, qb, dq_dc, dq_ac, ctx, tcb, rm, rddiv, tok, val):
     """trellis_block<i0> over a batch of threads (axis 0): cb, qb raster
-    [n,16]; tcb [n,16,3,12]; rm [n] float32. Returns (levels raster, eob)."""
+    [n,16]; tcb [n,16,3,12] int16; rm [n] float32; tok int8 and val int16.
+    A thread skips positions at or past its eob, takes only the ZERO fold
+    at a zero inside it, and keeps three bit masks (bb0, bb1, sc); the
+    forward walk visits every non-zero position. Returns (levels raster,
+    eob)."""
     n = qb.shape[0]
     ar = np.arange(n)
     qz, cz = _to_scan(qb).astype(np.int64), _to_scan(cb).astype(np.int64)
+    tcb = tcb.astype(np.int32)
     eob = np.zeros(n, np.int64)
     for i in range(16):
         eob = np.where(qz[:, i] != 0, i + 1, eob)
@@ -171,16 +247,21 @@ def _k6_block(i0, cb, qb, dq_dc, dq_ac, ctx, tcb, rm, rddiv, tok, val):
     tok0 = np.full(n, EOB)
     tok1 = np.full(n, EOB)
     nxt = eob.copy()
-    qc1 = np.zeros((n, 16), np.int64)
-    nxtp = np.zeros((n, 16), np.int64)
     bb0 = np.zeros(n, np.int64)
     bb1 = np.zeros(n, np.int64)
+    sc = np.zeros(n, np.int64)
     for i in range(15, i0 - 1, -1):
         tn = tcb[ar, min(i + 1, 15)]                      # [n,3,12]
         x = qz[:, i]
+        live = i < eob
+        zero = live & (x == 0)
+        f0, f1 = zero & (tok0 != EOB), zero & (tok1 != EOB)
+        rate0 = rate0 + np.where(f0, tn[ar, 0, tok0], 0).astype(np.int32)
+        rate1 = rate1 + np.where(f1, tn[ar, 0, tok1], 0).astype(np.int32)
+        tok0 = np.where(f0, 0, tok0)
+        tok1 = np.where(f1, 0, tok1)
+        nz = live & (x != 0)
         drc = dq_dc if i == 0 else dq_ac
-        active = i < eob
-        is_nz, is_z = active & (x != 0), active & (x == 0)
         ax = np.abs(x)
         g0 = nxt < 16
         pt0 = np.minimum(ax, 2)
@@ -210,32 +291,25 @@ def _k6_block(i0, cb, qb, dq_dc, dq_ac, ctx, tcb, rm, rddiv, tok, val):
         nrate1 = val[vi1] + np.where(best1, r11, r10)
         nerr1 = dx1 * dx1 + np.where(best1, err1, err0)
         ntok1 = np.where(best1, tb1, tb0)
-        qc1[:, i] = np.where(is_nz, x1, 0)
-        bb0 |= best0.astype(np.int64) << i
-        bb1 |= best1.astype(np.int64) << i
-        nxtp[:, i] = nxt
-        rate0 = np.where(is_nz, nrate0, rate0).astype(np.int32)
-        rate1 = np.where(is_nz, nrate1, rate1).astype(np.int32)
-        err0 = np.where(is_nz, nerr0, err0)
-        err1 = np.where(is_nz, nerr1, err1)
-        tok0 = np.where(is_nz, tok[vi0], tok0)
-        tok1 = np.where(is_nz, ntok1, tok1)
-        nxt = np.where(is_nz, i, nxt)
-        f0, f1 = is_z & (tok0 != EOB), is_z & (tok1 != EOB)
-        rate0 = rate0 + np.where(f0, tn[ar, 0, tok0], 0).astype(np.int32)
-        rate1 = rate1 + np.where(f1, tn[ar, 0, tok1], 0).astype(np.int32)
-        tok0 = np.where(f0, 0, tok0)
-        tok1 = np.where(f1, 0, tok1)
+        rate0 = np.where(nz, nrate0, rate0).astype(np.int32)
+        rate1 = np.where(nz, nrate1, rate1).astype(np.int32)
+        err0 = np.where(nz, nerr0, err0)
+        err1 = np.where(nz, nerr1, err1)
+        tok0 = np.where(nz, tok[vi0], tok0)
+        tok1 = np.where(nz, ntok1, tok1)
+        nxt = np.where(nz, i, nxt)
+        bb0 |= (nz & best0).astype(np.int64) << i
+        bb1 |= (nz & best1).astype(np.int64) << i
+        sc |= (nz & shortcut).astype(np.int64) << i
     tb = tcb[ar, i0, ctx]                                  # [n,12]
     br = cost(rate1 + tb[ar, tok1], err1) < cost(rate0 + tb[ar, tok0], err0)
     out = np.zeros((n, 16), np.int64)
     out[:, :i0] = qz[:, :i0]
-    cur = nxt
     for i in range(i0, 16):
-        hit = (cur == i) & (i < eob)
-        out[:, i] = np.where(hit, np.where(br, qc1[:, i], qz[:, i]), 0)
-        br = np.where(hit, ((np.where(br, bb1, bb0) >> i) & 1) != 0, br)
-        cur = np.where(hit, nxtp[:, i], cur)
+        x = qz[:, i]
+        step = br & (((sc >> i) & 1) != 0)
+        out[:, i] = np.where(step, x - np.sign(x), x)
+        br = np.where(x != 0, ((np.where(br, bb1, bb0) >> i) & 1) != 0, br)
     eob_out = np.zeros(n, np.int64)
     for i in range(16):
         eob_out = np.where(out[:, i] != 0, i + 1, eob_out)
@@ -244,14 +318,16 @@ def _k6_block(i0, cb, qb, dq_dc, dq_ac, ctx, tcb, rm, rddiv, tok, val):
     return raster, eob_out
 
 
-def _k6_emulate(coefs, q0, e0, d1, d2, duv, rdmult, rddiv):
+def _k6_emulate(coefs, q0, e0, d1, d2, duv, rdmult, rddiv, grid=None):
     ni = coefs.shape[0]
-    tcbs = np.stack([t.numpy() for t in _tcb()]).astype(np.int64)
-    tok, val = (t.numpy().astype(np.int64) for t in RD._value_tables("cpu"))
-    qcoeff = np.zeros((ni, 25, 16), np.int64)
-    eobs = np.zeros((ni, 25), np.int64)
+    tcbs = np.stack([t.numpy() for t in _tcb()]).astype(np.int16)
+    tok, val = (t.numpy() for t in RD._k6_value_tables("cpu"))
+    assert tok.dtype == np.int8 and val.dtype == np.int16
+    tok, val = tok.astype(np.int64), val.astype(np.int64)
+    qcoeff = np.full((ni, 25, 16), -99999, np.int64)
+    eobs = np.full((ni, 25), -1, np.int64)
     rdm = np.float32(rdmult)
-    for i0, (m, b) in zip((1, 0), _k6_threads(ni)):
+    for i0, (m, b) in zip((1, 0), _k6_threads(ni, grid)):
         plane = np.where(b < 16, 0, np.where(b < 24, 2, 1))  # tcb0/tcb2/tcb1
         dq = np.stack([d1, duv, d2])[np.where(b < 16, 0, np.where(
             b < 24, 1, 2)), m]
@@ -268,7 +344,7 @@ def _k6_emulate(coefs, q0, e0, d1, d2, duv, rdmult, rddiv):
 def test_k6_emulation_matches_plain(qindex):
     case = trellis_case(np, np.random.default_rng(200 + qindex), 128,
                         qindex)
-    got = _k6_emulate(*case)
+    got = _k6_emulate(*case, grid=5)   # 5 blocks: warps take 2-3 tiles
     want = _plain(case)
     np.testing.assert_array_equal(got[0], want[0].numpy())
     np.testing.assert_array_equal(got[1], want[1].numpy())
@@ -277,8 +353,10 @@ def test_k6_emulation_matches_plain(qindex):
 @pytest.mark.parametrize("qindex", [0, 4, 24, 63, 127])
 def test_rdcost_recipe_matches_rdc(qindex):
     """rdcost.cuh's recipe (here `_rdcost`) equals ops/rd_device.py:rdc
-    at each plane's rdmult over the rates and errors a trellis can reach:
-    rates below 2^20, errors up to 2^32."""
+    at each plane's rdmult (and K5's, factor 1) over the rates and errors a
+    trellis or K5 can reach: rates below 2^20, errors up to 2^32. Its floor
+    term, a product by 2^-8, equals the IEEE quotient by 256 it replaced on
+    every rate below 2^20, bit for bit."""
     from libvpx_opencl_tpu_torch.models import rdopt
     rdm, rdd, _ = rdopt.rd_consts(qindex)
     rng = np.random.default_rng(qindex)
@@ -286,8 +364,14 @@ def test_rdcost_recipe_matches_rdc(qindex):
                            np.arange(4096)]).astype(np.int32)
     err = np.concatenate([rng.integers(0, 2 ** 32, 4000),
                           rng.integers(0, 4096, 4096)])
-    for pm in (4.0, 16.0, 2.0):
+    every = np.arange(2 ** 20, dtype=np.int32)
+    for pm in (4.0, 16.0, 2.0, 1.0):
         rm = np.float32(rdm) * np.float32(pm)
+        x = np.float32(128.0) + every.astype(np.float32) * rm
+        assert x.dtype == np.float32 and (x >= 128).all()
+        quot = np.floor(x / np.float32(256.0))
+        np.testing.assert_array_equal(_rdfloor(every, rm).view(np.int32),
+                                      quot.view(np.int32))
         want = RD.rdc(torch.from_numpy(rate), torch.from_numpy(err),
                       torch.tensor(float(rdm)) * pm, torch.tensor(float(rdd)))
         got = _rdcost(rate, err, np.full(rate.shape, rm, np.float32),
@@ -299,11 +383,30 @@ def test_rate_bound():
     """K6 keeps rates in int32 and converts them to float32 inside rdc:
     a backward step adds one value cost and one token cost to a rate
     (a zero position one token cost), each below 2^15 in the encoder's
-    tables, so 16 steps stay below 2^20 < 2^24."""
+    tables, so 16 steps stay below 2^20 < 2^24; and K6 stages both kinds
+    of cost as int16. A token cost is at most 11 tree bits of at most
+    2048 each under any probability in [1, 255], so below 2^15 whatever
+    the frame's probabilities."""
+    from libvpx_opencl_tpu_torch.models import rdopt
     tok, val = RD._value_tables("cpu")
-    assert int(val.max()) < 2 ** 15 and int(tok.max()) <= EOB
+    assert 0 <= int(val.min()) and int(val.max()) < 2 ** 15
+    assert 0 <= int(tok.min()) and int(tok.max()) <= EOB
     for t in TE._tcb_tables("cpu"):
         assert 0 <= int(t.min()) and int(t.max()) < 2 ** 15
+    bit = max(max(rdopt.cost0(p), rdopt.cost1(p)) for p in range(1, 256))
+    assert 11 * bit < 2 ** 15
+
+
+def test_k6_value_tables_are_narrow_and_made_once():
+    """K6's value tables: the token ids as int8 and the costs as int16,
+    equal to the plain version's int32 tables, made once per device."""
+    tok, val = RD._value_tables("cpu")
+    ntok, nval = RD._k6_value_tables("cpu")
+    assert ntok.dtype == torch.int8 and nval.dtype == torch.int16
+    assert torch.equal(ntok.to(torch.int32), tok)
+    assert torch.equal(nval.to(torch.int32), val)
+    again = RD._k6_value_tables("cpu")
+    assert again[0] is ntok and again[1] is nval
 
 
 def test_cpu_trellis_runs_plain_and_launches_nothing():

@@ -3,19 +3,24 @@
 what a dependent bool read costs without the detokenizer around it, to
 set beside K4's ns per read (chip_smoke.py, csrc/detokenize.cu).
 
-Builds tools/profile_bool_chain.cu (K4's read_bool from
-csrc/boolread.cuh in a loop) with nvcc (sm_90a) into the port's
-git-ignored _build/ and runs as many reads as K4 makes on the keyframe
-of tests/vectors/bench_1080p.ivf (6,330,538) over that frame's bytes, in
-three modes: a fixed probability; the probability loaded from shared
-memory at an index made of the last bit; a branch on the last bit picking
-the probability. Each mode runs twice; prints ns per read, the SM clock
-read during a run, and the card's name and power limit.
+Builds tools/profile_bool_chain.cu (K4's reads from csrc/boolread.cuh in
+a loop) with nvcc (sm_90a) into the port's git-ignored _build/ and runs
+as many reads as K4 makes on the keyframe of tests/vectors/bench_1080p.ivf
+(6,330,538) over that frame's bytes, in five modes. The exact read
+(read_bool<false>: K4's before its redesign, and its fall-back): a fixed
+probability; the probability loaded from shared memory at an index made
+of the last bit; a branch on the last bit picking the probability. The
+fast read K4 runs (read_bool<true>): a fixed probability; a select on the
+last bit picking the probability from registers. Each mode runs twice;
+prints ns per read, the SM clock read during a run, and the card's name
+and power limit, then one JSON line of ns per read by mode (the lower of
+the two runs).
 
 Usage: python3 tools/profile_bool_chain.py [--reads N]
 """
 import argparse
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -29,8 +34,11 @@ import torch  # noqa: E402
 from libvpx_opencl_tpu_torch.ops import _cuda  # noqa: E402
 from libvpx_opencl_tpu_torch.utils.ivf import read_ivf  # noqa: E402
 
-MODES = ("fixed probability", "probability from shared memory",
-         "branch picks the probability")
+MODES = ("exact read, fixed probability",
+         "exact read, probability from shared memory",
+         "exact read, branch picks the probability",
+         "fast read, fixed probability",
+         "fast read, select picks the probability")
 
 
 def smi(query):
@@ -71,6 +79,7 @@ def main(argv=None):
                          device=dev)
     out = torch.zeros(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    best = {}
     for rep in range(2):
         for mode, name in enumerate(MODES):
             torch.cuda.synchronize()
@@ -83,10 +92,15 @@ def main(argv=None):
             clocks = smi("clocks.sm,clocks.max.sm")   # while it runs
             e1.synchronize()
             ms = e0.elapsed_time(e1)
+            ns = ms * 1e6 / args.reads
+            best[name] = min(best.get(name, ns), ns)
             print(f"run {rep}, {name}: {ms:.3f} ms for {args.reads} reads, "
-                  f"{ms * 1e6 / args.reads:.2f} ns/read; SM clock {clocks} "
+                  f"{ns:.2f} ns/read; SM clock {clocks} "
                   f"(now, max); bytes read {int(out[1])} [{card}]",
                   flush=True)
+    print(json.dumps({"card": card, "reads": args.reads,
+                      "ns_per_read": best}), flush=True)
+    return best
 
 
 if __name__ == "__main__":

@@ -41,12 +41,12 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def build(src, name):
-    """nvcc `src` into _build/profile_k5/lib<name>.so as ops/_cuda.py
-    builds the kernels (csrc/ on the include path); returns (path, the
-    ptxas report)."""
+def build(src, name, sub="profile_k5"):
+    """nvcc `src` into _build/<sub>/lib<name>.so as ops/_cuda.py builds
+    the kernels (csrc/ on the include path); returns (path, the ptxas
+    report)."""
     from libvpx_opencl_tpu_torch.ops import _cuda
-    out_dir = os.path.join(_cuda.BUILD_DIR, "profile_k5")
+    out_dir = os.path.join(_cuda.BUILD_DIR, sub)
     os.makedirs(out_dir, exist_ok=True)
     so = os.path.join(out_dir, f"lib{name}.so")
     cmd = [_cuda._nvcc(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
@@ -59,10 +59,13 @@ def build(src, name):
     return so, report
 
 
-def bind(so):
+def bind(so, kernel="encode_wavefront"):
+    """The C entry point of `kernel` (a name in ops/_cuda.py's KERNELS) in
+    the library `so`, with the package's argument types."""
     from libvpx_opencl_tpu_torch.ops import _cuda
-    fn = ctypes.CDLL(so).encode_wavefront
-    fn.argtypes = list(_cuda.KERNELS["encode_wavefront"][2])
+    _src, entry, argtypes = _cuda.KERNELS[kernel]
+    fn = getattr(ctypes.CDLL(so), entry)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
