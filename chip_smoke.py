@@ -17,7 +17,8 @@ on the card with a closed-loop gate under SLICE2_SF, and the first ten
 (1 key + 9 inter) at the default speed features (B_PRED and trellis on),
 drives the multi-GPU drivers (sharded decode and encode, GOP-parallel
 decode and encode, the batch transcoder) on virtual row shards of the
-card, and times decode, encode and the kernels. Any failure raises (exit
+card, drives the encoder's user entry points (tpuvpxenc in four legs,
+MultiResEncoder) at 1080p, and times decode, encode and the kernels. Any failure raises (exit
 code != 0). It prints, in order:
 
   * the card's name and power limit (nvidia-smi) and the kernel build time;
@@ -117,6 +118,24 @@ code != 0). It prints, in order:
     sequential encode with the same keyframes, K5 once per frame, K6
     never; the BatchTranscoder on two QCIF jobs with resume (default
     features: K6 on their inter frames), equal to a sequential transcode;
+  * the encoder's user entry points (`cli_encode_phases`): tpuvpxenc's
+    main(..., device="cuda") on the first 6 decoded 1080p frames (written
+    as a Y4M) in four legs: cq 24 at the default features (its bytes
+    per frame == DEFAULT_BYTES), vbr 4000 kbps (the recode loop), two-pass
+    at --cpu-used 5 (the host first pass timed apart) and --auto-alt-ref
+    with lag 4 at --cpu-used 5 on 7 frames, written as WebM (an invisible
+    ARF, ARNR handed the card); then MultiResEncoder(1920, 1080) on 6
+    frames. Each leg's payloads == the same flow driven directly on a
+    TorchEncoder, every frame TorchDecoder decodes on the card has the
+    MD5 of `tpuvpxdec --golden --md5` (the host decoder, one process per
+    file, side by side), luma PSNR >= 30 dB, and every encode_frame
+    call's launches are what its frame predicts (K3 once per reference
+    under the exhaustive search, K5 once, K2 once with a filter level,
+    K6 once on an inter frame with the trellis, K1 never); MultiRes's
+    layers == two directly driven TorchEncoders, closed loop on the card,
+    TorchDecoder MD5s == the host decoder's, and K5 and K2 == plain on
+    the 960x540 low layer's first two frames.
+    Per leg: frames/s over main(), bytes, calls, launches, --psnr;
   * K4, the device detokenizer (`entropy_phases`): its main path,
     tools/bench_entropy_torch.py over all 30 frames of bench_1080p (the
     host decoder's entropy layer; K4 through its wrapper once per frame,
@@ -143,8 +162,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VECTORS = os.path.join(HERE, "tests", "vectors")
+# K1 / K2 vs plain on random frames; 34 x 60 is MultiResEncoder's 960x540
+# low layer, 68 x 120 the 1080p frame
 GEOMS = [(4, 6), (3, 3), (1, 5), (5, 1), (1, 1), (2, 1), (1, 2), (2, 2),
-         (200, 3), (68, 120)]
+         (200, 3), (34, 60), (68, 120)]
 EXTRA_STREAMS = ["profile1_qcif", "profile2_qcif", "profile3_qcif",
                  "odd_65x49", "part4_cif", "seg_roi_qcif"]
 # 1080p frames of the SLICE2_SF encode (1 key + 3 inter), of the
@@ -176,6 +197,25 @@ K6_QINDEX = [0, 4, 24, 63, 127]
 # every inter frame's bytes
 DEFAULT_BYTES = [422252, 297031, 289888, 293468, 348510, 291138, 340120,
                  282933, 342811, 281112]
+# tpuvpxenc legs on the first decoded 1080p frames: (name, options,
+# output extension, frames); the legs with --cpu-used 5 run no trellis.
+# Lag 4 puts the first ARF before frame 4, and it needs 3 frames in the
+# lookahead there (models/arnr.py:encode_stream_altref): 7 frames, the
+# fewest with an ARF (the host decoder's ~20 s per 1080p frame of this
+# leg's file sets the phase's wall). MultiResEncoder takes CLI_FRAMES.
+CLI_FRAMES = 6
+# K5 and K2 vs plain on MultiResEncoder's low layer: its keyframe and first
+# inter frame (K5's plain version takes seconds per frame)
+MR_PLAIN_FRAMES = 2
+CLI_LEGS = [
+    ("cq", ["--end-usage", "cq", "--cq-level", "24", "--psnr"], ".ivf", 6),
+    ("vbr", ["--end-usage", "vbr", "--target-bitrate", "4000", "--psnr"],
+     ".ivf", 6),
+    ("two_pass", ["--passes", "2", "--target-bitrate", "4000",
+                  "--cpu-used", "5", "--psnr"], ".ivf", 6),
+    ("auto_alt_ref", ["--auto-alt-ref", "1", "--lag-in-frames", "4",
+                      "--end-usage", "cq", "--cpu-used", "5"], ".webm", 7),
+]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -1089,6 +1129,421 @@ def multi_shard_phases(torch, np, card, src_frames, slice2_payloads, err):
           f"{got['encode_wavefront']}, K6 launches {got['trellis']})",
           flush=True)
     print(f"multi-shard phases: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return total
+
+
+def cli_encode_phases(torch, np, card, src_frames, err):
+    """The encoder's user entry points on the card at 1080p: tpuvpxenc's
+    main(..., device="cuda") in the CLI_LEGS legs on the first 6 or 7
+    decoded frames of bench_1080p (written as a Y4M), then
+    MultiResEncoder(1920, 1080, device="cuda") on the first CLI_FRAMES. Per leg: its bytes equal
+    the same flow driven directly on a TorchEncoder; every frame that
+    TorchDecoder decodes on the card has the MD5 of the host decoder's
+    decode of the same file (`tpuvpxdec --golden --md5`, one process per
+    file, run side by side: the host decoder takes seconds per 1080p
+    frame); each shown frame's luma PSNR against its source >= 30 dB;
+    the launches of every encode_frame call (recode attempts included)
+    are those its frame predicts: K3 once per reference searched on an
+    inter frame under the exhaustive search (--cpu-used 0; the step-2
+    search of --cpu-used 1+ runs as torch ops, ops/me.py:full_search),
+    K5 once, K2 once when the filter level is above 0, K6 once on an
+    inter frame with the trellis on and an inter MB, K1 never. The
+    altref leg writes an invisible frame and hands ARNR the card.
+    MultiResEncoder's layers equal two directly driven TorchEncoders, K5
+    and K2 equal their plain versions on the low layer's (34 x 60 MBs)
+    first MR_PLAIN_FRAMES frames in that direct run, and both layers'
+    TorchDecoder MD5s equal the host decoder's. Every count is zeroed just
+    before a path and read just after; returns the summed launches."""
+    import contextlib
+    import io
+    import tempfile
+    from libvpx_opencl_tpu_torch.cli import tpuvpxenc
+    from libvpx_opencl_tpu_torch.models import arnr, twopass
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+    from libvpx_opencl_tpu_torch.models import wavefront as EW
+    from libvpx_opencl_tpu_torch.models.multires import (MultiResEncoder,
+                                                         downsample2)
+    from libvpx_opencl_tpu_torch.models.ratecontrol import (
+        RateController, encode_frame_with_rc)
+    from libvpx_opencl_tpu_torch.models.refdec import INTRA_FRAME
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    from libvpx_opencl_tpu_torch.utils.ivf import (IvfStream, read_ivf,
+                                                   write_ivf)
+    from libvpx_opencl_tpu_torch.utils.md5 import frame_md5
+    from libvpx_opencl_tpu_torch.utils.webm import read_webm
+    from libvpx_opencl_tpu_torch.utils.y4m import Y4MReader, write_y4m
+
+    t_start = time.perf_counter()
+    frames = src_frames[:CLI_FRAMES]
+    h, w = frames[0][0].shape
+    total = {name: 0 for name in W.launches}
+    real_encode, real_first, real_arnr = (
+        TE.TorchEncoder.encode_frame, twopass.first_pass,
+        arnr.synthesize_altref)
+    calls, first_s, arnr_devices = [], [], []
+
+    def refs_searched(enc):
+        if not enc.sf.multi_ref:
+            return 1
+        return 1 + (enc.ref_gold is not enc.ref_last) + (
+            enc.ref_alt is not enc.ref_last
+            and enc.ref_alt is not enc.ref_gold)
+
+    def counted_encode(self, y, u, v, keyframe=None, **kw):
+        key = self.frame_count == 0 if keyframe is None else bool(keyframe)
+        want = {name: 0 for name in W.launches}
+        if not key and self.sf.exhaustive_me:
+            want["sad_grid"] = refs_searched(self)
+        before = dict(W.launches)
+        payload = real_encode(self, y, u, v, keyframe=keyframe, **kw)
+        n_inter = int((self.reff[1:, 1:] != INTRA_FRAME).sum())
+        want["encode_wavefront"] = 1
+        want["lf_wavefront"] = int(self.filter_level > 0)
+        want["trellis"] = int(not key and bool(self.sf.trellis)
+                              and n_inter > 0)
+        calls.append(({k: W.launches[k] - before[k] for k in W.launches},
+                      want))
+        return payload
+
+    def timed_first_pass(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_first(*a, **kw)
+        first_s.append(time.perf_counter() - t0)
+        return out
+
+    def arnr_spy(*a, device=False, **kw):
+        arnr_devices.append(device)
+        return real_arnr(*a, device=device, **kw)
+
+    @contextlib.contextmanager
+    def counted():
+        """Zero the counts and record each encode_frame call's launches,
+        the first pass's seconds and ARNR's device; on exit, restore and
+        fill the yielded dict with the counts read just after the run."""
+        got = {}
+        calls.clear()
+        first_s.clear()
+        arnr_devices.clear()
+        for name in W.launches:
+            W.launches[name] = 0
+        TE.TorchEncoder.encode_frame = counted_encode
+        twopass.first_pass = timed_first_pass
+        arnr.synthesize_altref = arnr_spy
+        try:
+            yield got
+        finally:
+            TE.TorchEncoder.encode_frame = real_encode
+            twopass.first_pass = real_first
+            arnr.synthesize_altref = real_arnr
+        got.update(W.launches)
+        for name in total:
+            total[name] += got[name]
+
+    def check_calls(label, got, k3, k6):
+        """The leg's counts equal the sum of its calls' predictions, and
+        each call launched what its frame predicts."""
+        for i, (g, want) in enumerate(calls):
+            if g != want:
+                fail(f"{label}: encode_frame call {i} launched {g}, its "
+                     f"frame predicts {want}")
+        want = {name: sum(c[1][name] for c in calls) for name in got}
+        if got != want:
+            fail(f"{label}: launches {got} over the leg, {want} predicted")
+        if not (got["encode_wavefront"] and got["lf_wavefront"]) or \
+                bool(got["sad_grid"]) != k3 or bool(got["trellis"]) != k6:
+            fail(f"{label}: launches {got}; K3 expected "
+                 f"{'> 0' if k3 else '0'}, K6 {'> 0' if k6 else '0'}")
+
+    def psnr(a, b):
+        mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+        return 10 * np.log10(255 ** 2 / mse) if mse > 0 else 99.0
+
+    def payloads_of(path):
+        if path.endswith(".webm"):
+            return [(p, None) for p, _ts, _key in read_webm(path).frames]
+        return read_ivf(path).frames
+
+    def card_decode(payloads):
+        """TorchDecoder on the card: the MD5 and the planes of each shown
+        frame (its launches are a check and are not counted)."""
+        dec = TD.TorchDecoder(device="cuda")
+        shown = []
+        for p in payloads:
+            show, planes = dec.decode_frame(p)
+            if show:
+                shown.append((frame_md5(*planes), planes))
+        return shown
+
+    def direct(leg, y4m, frames):
+        """The leg's flow driven directly on a TorchEncoder, as tpuvpxenc
+        drives it (its defaults: --kf-max-dist 128, --min-q 4, --max-q
+        63, --lag-in-frames read as lag 4, --arnr-maxframes 5,
+        --arnr-strength 6). Only the cq leg's bytes are pinned
+        (DEFAULT_BYTES); for the others this second encode on fresh
+        device state is what shows, at 1080p on the card, that the CLI
+        leaves the library's flow as it is and that the kernels give the
+        same bytes run to run (a race in K2, K5 or K6 would not)."""
+        rd = Y4MReader(y4m)
+        fps = rd.fps[0] / max(1, rd.fps[1])
+        mb = ((h + 15) // 16) * ((w + 15) // 16)
+        if leg == "cq":
+            enc = TE.TorchEncoder(w, h, qindex=24, device="cuda")
+            return [enc.encode_frame(*f, keyframe=i == 0)
+                    for i, f in enumerate(frames)]
+        if leg == "vbr":
+            enc = TE.TorchEncoder(w, h, qindex=24, device="cuda")
+            rc = RateController(4000, fps, mb, min_q=4, max_q=63,
+                                end_usage="vbr", kf_max_dist=128)
+            out = []
+            for i, f in enumerate(frames):
+                key = i == 0 or rc.want_keyframe()
+                out.append(encode_frame_with_rc(enc, rc, *f, keyframe=key))
+            return [p for p in out if p]
+        if leg == "two_pass":
+            enc = TE.TorchEncoder(w, h, qindex=24, cpu_used=5,
+                                  device="cuda")
+            rc = twopass.TwoPassController(twopass.first_pass(frames), 4000,
+                                           fps, mb, min_q=4, max_q=63)
+            out = []
+            for i, f in enumerate(frames):
+                key = i == 0 or rc.want_keyframe()
+                enc.qindex = rc.frame_q(key)
+                p = enc.encode_frame(*f, keyframe=key)
+                rc.update(enc.qindex, len(p) * 8, key)
+                out.append(p)
+            return [p for p in out if p]
+        enc = TE.TorchEncoder(w, h, qindex=24, cpu_used=5, device="cuda")
+        return [p for p in arnr.encode_stream_altref(
+            enc, None, frames, lag=4, gf_interval=4, max_frames=5,
+            strength=6) if p]
+
+    host_procs, results = {}, {}
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the four legs, each timed alone (host decodes start after) --
+        for leg, opts, ext, n in CLI_LEGS:
+            y4m = os.path.join(tmp, f"bench_1080p_{n}.y4m")
+            if not os.path.exists(y4m):
+                write_y4m(y4m, src_frames[:n], w, h)
+            out = os.path.join(tmp, leg + ext)
+            err_text = io.StringIO()
+            with counted() as got:
+                with contextlib.redirect_stderr(err_text):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rc = tpuvpxenc.main([y4m, "-o", out, *opts],
+                                        device="cuda")
+                    wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"tpuvpxenc {leg}: exit {rc}")
+            check_calls(f"tpuvpxenc {leg}", got, k3="--cpu-used" not in opts,
+                        k6=leg in ("cq", "vbr"))
+            sizes = [len(p) for p, _ in payloads_of(out)]
+            if leg == "cq" and sizes != DEFAULT_BYTES[:n]:
+                # cq 24 at the default features is the default-feature
+                # encode's configuration
+                fail(f"tpuvpxenc cq: {sizes} bytes per frame, "
+                     f"{DEFAULT_BYTES[:n]} expected")
+            text = err_text.getvalue()
+            psnr_line = [ln for ln in text.splitlines()
+                         if "Overall PSNR" in ln]
+            results[leg] = dict(out=out, y4m=y4m, n=n, wall=wall, got=got,
+                                attempts=len(calls),
+                                first_s=sum(first_s),
+                                arnr=list(arnr_devices),
+                                psnr=psnr_line[0].split(":")[1].strip()
+                                if psnr_line else "not asked")
+        # -- MultiResEncoder at 1920 x 1080 (+ 960 x 540) -----------------
+        with counted() as mr_got:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mr = MultiResEncoder(w, h, device="cuda")
+            mr_out, mr_shown = [], []
+            for i, f in enumerate(frames):
+                mr_out.append(mr.encode_frame(*f, keyframe=i == 0))
+                mr_shown.append((mr.hi.frame_to_show, mr.lo.frame_to_show))
+            mr_wall = time.perf_counter() - t0
+        mr_recon = [(a.visible(), b.visible()) for a, b in mr_shown]
+        check_calls("MultiResEncoder", mr_got, k3=True, k6=True)
+        if mr_got["encode_wavefront"] != 2 * len(frames):
+            fail(f"MultiResEncoder: K5 launched "
+                 f"{mr_got['encode_wavefront']} times for "
+                 f"{2 * len(frames)} layer frames")
+        host_files = {leg: r["out"] for leg, r in results.items()}
+        for layer, name in ((0, "hi"), (1, "lo")):
+            lw, lh = (w, h) if layer == 0 else (w // 2, h // 2)
+            stream = IvfStream(width=lw, height=lh, timebase_num=1,
+                               timebase_den=30)
+            stream.frames = [(p[layer], i) for i, p in enumerate(mr_out)]
+            host_files[f"MultiResEncoder {name}"] = os.path.join(
+                tmp, f"multires_{name}.ivf")
+            write_ivf(host_files[f"MultiResEncoder {name}"], stream)
+        card_md5 = {}
+        # -- the host decoder's MD5s, one process per file ---------------
+        try:
+            for label, path in host_files.items():
+                host_procs[label] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "libvpx_opencl_tpu_torch.cli.tpuvpxdec", path,
+                     "--md5", "--golden"], cwd=HERE, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+            t_host = time.perf_counter()
+            # -- meanwhile: the direct flows and the card's decodes ------
+            for leg, opts, ext, n in CLI_LEGS:
+                r = results[leg]
+                payloads = [p for p, _ in payloads_of(r["out"])]
+                if payloads != direct(leg, r["y4m"], src_frames[:n]):
+                    fail(f"tpuvpxenc {leg}: the written payloads differ "
+                         f"from the same flow driven on a TorchEncoder")
+                if leg == "auto_alt_ref":
+                    if all((p[0] >> 4) & 1 for p in payloads):
+                        fail("tpuvpxenc auto_alt_ref wrote no invisible "
+                             "altref frame")
+                    if not r["arnr"] or any(d != torch.device("cuda")
+                                            for d in r["arnr"]):
+                        fail(f"tpuvpxenc auto_alt_ref: ARNR handed "
+                             f"{r['arnr']}, not the card")
+                shown = card_decode(payloads)
+                if ext == ".ivf":
+                    # IVF pts = source index (a dropped frame is not
+                    # written)
+                    src_idx = [pts for _, pts in payloads_of(r["out"])]
+                else:
+                    src_idx = list(range(n))
+                if len(shown) != len(src_idx):
+                    fail(f"tpuvpxenc {leg}: TorchDecoder showed "
+                         f"{len(shown)} frames, {len(src_idx)} expected")
+                r["psnr_min"] = min(psnr(src_frames[i][0], planes[0])
+                                    for i, (_, planes) in zip(src_idx,
+                                                              shown))
+                card_md5[leg] = [m for m, _ in shown]
+                r["payloads"] = payloads
+                if r["psnr_min"] < 30.0:
+                    fail(f"tpuvpxenc {leg}: luma PSNR {r['psnr_min']:.2f} "
+                         f"dB < 30 dB")
+            # MultiResEncoder: each layer == a directly driven
+            # TorchEncoder, whose low layer's first MR_PLAIN_FRAMES frames
+            # also hold K5 and K2 against their plain versions; decoded
+            # closed-loop on the card
+            real_k5, real_k2 = EW.encode_recon_planes, W.loop_filter_planes
+            plain_s = []
+
+            def k5_checked(R, C, *a):
+                got = real_k5(R, C, *a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = EW._encode_planes_plain(R, C, *a)
+                torch.cuda.synchronize()
+                plain_s.append(time.perf_counter() - t0)
+                d = max_abs_diff(torch, got, want)
+                err["encode_wavefront"] = max(err["encode_wavefront"], d)
+                if d:
+                    fail(f"K5 disagrees with _encode_planes_plain on "
+                         f"MultiResEncoder's low layer ({R}x{C})")
+                return got
+
+            def k2_checked(R, C, simple, y, u, v, params, *a):
+                want = [p.clone() for p in (y, u, v)]
+                real_k2(R, C, simple, y, u, v, params, *a)
+                W._lf_planes_plain(R, C, simple, *want, params, *a)
+                d = max_abs_diff(torch, (y, u, v), want)
+                err["lf_wavefront"] = max(err["lf_wavefront"], d)
+                if d:
+                    fail(f"K2 disagrees with _lf_planes_plain on "
+                         f"MultiResEncoder's low layer ({R}x{C})")
+
+            hi = TE.TorchEncoder(w, h, qindex=32, device="cuda")
+            lo = TE.TorchEncoder(w // 2, h // 2, qindex=28, device="cuda")
+            n_k5, n_k2 = 0, 0
+            for i, f in enumerate(frames):
+                if i < MR_PLAIN_FRAMES:
+                    EW.encode_recon_planes = k5_checked
+                    W.loop_filter_planes = k2_checked
+                try:
+                    before = dict(W.launches)
+                    want_lo = lo.encode_frame(*(downsample2(p) for p in f),
+                                              keyframe=i == 0)
+                finally:
+                    EW.encode_recon_planes = real_k5
+                    W.loop_filter_planes = real_k2
+                if i < MR_PLAIN_FRAMES:
+                    n_k5 += W.launches["encode_wavefront"] - \
+                        before["encode_wavefront"]
+                    n_k2 += W.launches["lf_wavefront"] - \
+                        before["lf_wavefront"]
+                want_hi = hi.encode_frame(*f, keyframe=i == 0)
+                if mr_out[i] != (want_hi, want_lo):
+                    fail(f"MultiResEncoder frame {i}: a layer differs from "
+                         f"a directly driven TorchEncoder")
+            if n_k5 != MR_PLAIN_FRAMES or n_k2 != MR_PLAIN_FRAMES:
+                fail(f"MultiResEncoder's low layer: {n_k5} K5 and {n_k2} "
+                     f"K2 launches held against plain, "
+                     f"{MR_PLAIN_FRAMES} each expected")
+            print(f"K5 and K2 vs plain on MultiResEncoder's low layer "
+                  f"({lo.R}x{lo.C} MBs, frames 0-{MR_PLAIN_FRAMES - 1}): "
+                  f"exact; K5 plain {[round(s, 3) for s in plain_s]} s "
+                  f"[{card}]", flush=True)
+            for layer, name in ((0, "hi"), (1, "lo")):
+                shown = card_decode([p[layer] for p in mr_out])
+                if len(shown) != len(frames) or any(
+                        not np.array_equal(a, b)
+                        for (_, planes), rec in zip(shown, mr_recon)
+                        for a, b in zip(planes, rec[layer])):
+                    fail(f"MultiResEncoder {name} layer: TorchDecoder's "
+                         f"frames differ from the encoder's reconstruction")
+                card_md5[f"MultiResEncoder {name}"] = [m for m, _ in shown]
+            t_wait = time.perf_counter()
+            for label, proc in host_procs.items():
+                out_text, err_text = proc.communicate(timeout=900)
+                if proc.returncode != 0:
+                    fail(f"tpuvpxdec --golden on {label}: exit "
+                         f"{proc.returncode}: {err_text[-400:]}")
+                host = [ln.split()[0] for ln in out_text.splitlines()]
+                if host != card_md5[label]:
+                    fail(f"{label}: TorchDecoder's MD5s differ from the "
+                         f"host decoder's ({len(host)} host frames)")
+            host_s = time.perf_counter() - t_host
+            waited = time.perf_counter() - t_wait
+        finally:
+            for proc in host_procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for leg, opts, ext, n in CLI_LEGS:
+        r = results[leg]
+        enc_s = r["wall"] - r["first_s"]
+        print(f"tpuvpxenc {leg} ({' '.join(opts)}, {ext}) on {n} 1080p "
+              f"frames: {len(r['payloads'])} payloads, "
+              f"{sum(len(p) for p in r['payloads'])} bytes, "
+              f"{n / r['wall']:.4f} frames/s over main() "
+              f"({r['wall']:.4f} s"
+              + (f", of it the host first pass {r['first_s']:.4f} s, "
+                 f"{n / enc_s:.4f} frames/s without it"
+                 if r["first_s"] else "")
+              + f"), {r['attempts']} encode_frame calls, launches "
+              f"K3 {r['got']['sad_grid']} K5 {r['got']['encode_wavefront']}"
+              f" K2 {r['got']['lf_wavefront']} K6 {r['got']['trellis']} "
+              f"K1 {r['got']['intra_wavefront']}, --psnr {r['psnr']}, "
+              f"min luma PSNR {r['psnr_min']:.2f} dB"
+              + (f", ARNR on {r['arnr'][0]} ({len(r['arnr'])} altrefs)"
+                 if r["arnr"] else "")
+              + f"; payloads == the direct TorchEncoder flow, "
+              f"TorchDecoder MD5s == host decoder [{card}]", flush=True)
+    print(f"MultiResEncoder({w}, {h}, device='cuda') on {len(frames)} "
+          f"frames: {len(frames) / mr_wall:.4f} frames/s "
+          f"({mr_wall:.4f} s, both layers), hi "
+          f"{sum(len(p[0]) for p in mr_out)} bytes, lo "
+          f"{sum(len(p[1]) for p in mr_out)} bytes, launches K3 "
+          f"{mr_got['sad_grid']} K5 {mr_got['encode_wavefront']} K2 "
+          f"{mr_got['lf_wavefront']} K6 {mr_got['trellis']}; both layers == "
+          f"directly driven TorchEncoders, closed loop on the card, "
+          f"TorchDecoder MD5s == host decoder [{card}]", flush=True)
+    print(f"CLI encode phases: {time.perf_counter() - t_start:.1f} s, of it "
+          f"{host_s:.1f} s from the host decodes' start to their end "
+          f"({waited:.1f} s waited after the card's checks) [{card}]",
           flush=True)
     return total
 
@@ -2166,6 +2621,11 @@ def main():
     # encode, the batch transcoder, on virtual shards of the one card ----
     for name, count in multi_shard_phases(torch, np, card, slice2_frames,
                                           slice2_payloads, err).items():
+        launches[name] += count
+
+    # -- the encoder's user entry points: tpuvpxenc and MultiResEncoder ----
+    for name, count in cli_encode_phases(torch, np, card, src_frames,
+                                         err).items():
         launches[name] += count
 
     # -- K4, the device detokenizer, and the port's headline bench ---------

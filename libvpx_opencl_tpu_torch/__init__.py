@@ -9,7 +9,8 @@ JAX package; the host modules it needs are its own copies.
   api.py   — the codec API: CodecDecoder (postproc, error concealment,
              input fragments, reference controls) and CodecEncoder
   cli/     — tpuvpxdec (decoder CLI on TorchDecoder) and tpuvpxenc
-             (encoder CLI on the host Encoder)
+             (encoder CLI on TorchEncoder); --golden selects the host
+             decoder / Encoder
   utils/   — IVF, WebM and Y4M containers, MD5 conformance oracle, native
              entropy and pack runtime
   ops/     — tables, transforms and quantizers, prediction, loop-filter

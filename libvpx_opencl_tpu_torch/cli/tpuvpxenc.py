@@ -2,7 +2,12 @@
 
 Mirrors the reference tool's interface (vpxenc.c arg tables: --target-bitrate,
 --end-usage, --kf-max-dist, --token-parts, --psnr, IVF output) over the
-framework encoder with the host rate-control layer.
+framework encoder with the host rate-control layer. The frames are encoded
+by TorchEncoder on the CUDA card (the pixel pipeline on the device, entropy
+packing, rate control and the two-pass first pass on the host); --golden
+selects the pure-host golden Encoder instead:
+
+    python -m libvpx_opencl_tpu_torch.cli.tpuvpxenc in.y4m -o out.ivf
 """
 from __future__ import annotations
 
@@ -11,7 +16,10 @@ import sys
 import time
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
+    """Run the CLI on `argv`; `device` is the torch device TorchEncoder
+    runs on (the default needs a CUDA card). --golden encodes with the
+    host Encoder and never touches `device`."""
     p = argparse.ArgumentParser(prog="tpuvpxenc")
     p.add_argument("input", help="input .y4m file")
     p.add_argument("-o", "--output", required=True, help="output IVF file")
@@ -37,11 +45,20 @@ def main(argv=None):
     p.add_argument("--arnr-strength", type=int, default=6)
     p.add_argument("--lag-in-frames", type=int, default=16)
     p.add_argument("--golden-interval", type=int, default=0)
-    p.add_argument("--cpu-used", type=int, default=0)
+    p.add_argument("--cpu-used", type=int, default=0,
+                   help="speed ladder: 0 exhaustive ME, B_PRED, trellis; "
+                        "1-4 step-2 ME; 5-11 also no B_PRED, no trellis; "
+                        "12+ also LAST only. The device encoder has no "
+                        "SPLITMV and no SAD decision (--golden has both: "
+                        "SPLITMV at 0-2, SAD decision at 8+)")
     p.add_argument("--psnr", action="store_true")
     p.add_argument("--tune", choices=["psnr", "ssim"], default="psnr",
                    help="ssim = activity masking "
-                        "(vp8_activity_masking, encodeframe.c:81-357)")
+                        "(vp8_activity_masking, encodeframe.c:81-357); "
+                        "host encoder only, needs --golden")
+    p.add_argument("--golden", action="store_true",
+                   help="use the pure-host golden encoder instead of the "
+                        "device pipeline")
     p.add_argument("--rate-hist", type=int, default=0, metavar="N",
                    help="show N-bucket per-frame rate histogram "
                         "(vpxenc.c show_rate_histogram)")
@@ -49,8 +66,10 @@ def main(argv=None):
                    help="show N-bucket quantizer histogram "
                         "(vpxenc.c show_q_histogram)")
     args = p.parse_args(argv)
+    if args.tune == "ssim" and not args.golden:
+        p.error("--tune ssim (activity masking) runs on the host encoder "
+                "only: add --golden")
 
-    from ..models.encoder import Encoder
     from ..models.ratecontrol import RateController
     from ..ops.metrics import frame_psnr
     from ..utils.ivf import IvfStream, write_ivf
@@ -61,12 +80,17 @@ def main(argv=None):
     # (vp8_set_speed_features onyx_if.c:670 via encoder.speed_features):
     # 0 = everything on (exhaustive ME, SPLITMV, B_PRED, trellis),
     # 1-2 step-2 ME, 3-4 -SPLITMV, 5-7 -trellis/-B_PRED,
-    # 8-11 SAD decision, 12+ LAST-only
-    enc = Encoder(rd.w, rd.h, qindex=args.cq_level,
-                  token_parts=args.token_parts,
-                  golden_interval=args.golden_interval,
-                  cpu_used=args.cpu_used)
-    enc.tune_ssim = args.tune == "ssim"
+    # 8-11 SAD decision, 12+ LAST-only; the device encoder honours
+    # exhaustive ME, B_PRED, trellis and multi-ref
+    kw = dict(qindex=args.cq_level, token_parts=args.token_parts,
+              golden_interval=args.golden_interval, cpu_used=args.cpu_used)
+    if args.golden:
+        from ..models.encoder import Encoder
+        enc = Encoder(rd.w, rd.h, **kw)
+        enc.tune_ssim = args.tune == "ssim"
+    else:
+        from ..models.torch_encoder import TorchEncoder
+        enc = TorchEncoder(rd.w, rd.h, device=device, **kw)
     mb_count = ((rd.h + 15) // 16) * ((rd.w + 15) // 16)
     rc = None
     if args.passes == 2:
@@ -155,7 +179,11 @@ def main(argv=None):
         stream.frames.append((payload, i))
         q_hist.append(int(enc.qindex))
         if args.psnr:
-            rec = enc.dec.frame_to_show.visible()
+            # the device encoder keeps its reconstruction on the card;
+            # the host Encoder decodes its payload into enc.dec
+            shown = enc.dec.frame_to_show if args.golden else \
+                enc.frame_to_show
+            rec = shown.visible()
             psnr_acc.append(frame_psnr((y, u, v), rec)["all"])
         n += 1
         sys.stderr.write(f"\rPass 1/1 frame {n} "

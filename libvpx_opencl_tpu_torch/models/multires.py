@@ -5,8 +5,13 @@ The reference's vpx_codec_enc_init_multi / mr_dissim flow
 the same content is encoded at several resolutions, and the lower
 resolution's motion field seeds the higher resolution's search
 (get_lower_res_motion_info, pickinter.c:397).
+
+Each layer is a TorchEncoder on the CUDA card by default; use_device=False
+encodes both with the host Encoder. The downsampling stays on the host.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -25,9 +30,18 @@ def downsample2(plane):
 class MultiResEncoder:
     """Simulcast at [full, half] resolutions (extendable to more levels)."""
 
-    def __init__(self, width, height, qindices=(32, 28), **kw):
-        self.hi = Encoder(width, height, qindex=qindices[0], **kw)
-        self.lo = Encoder(width // 2, height // 2, qindex=qindices[1], **kw)
+    def __init__(self, width, height, qindices=(32, 28), device="cuda",
+                 use_device=True, **kw):
+        """use_device=True builds both layers as TorchEncoders on `device`
+        (the default needs a CUDA card); use_device=False as host
+        Encoders (the JAX class's behaviour)."""
+        if use_device:
+            from .torch_encoder import TorchEncoder
+            make = functools.partial(TorchEncoder, device=device, **kw)
+        else:
+            make = functools.partial(Encoder, **kw)
+        self.hi = make(width, height, qindex=qindices[0])
+        self.lo = make(width // 2, height // 2, qindex=qindices[1])
 
     def encode_frame(self, y, u, v, keyframe=None):
         """Returns (hi_payload, lo_payload)."""

@@ -1,8 +1,9 @@
 """The port's CLIs (libvpx_opencl_tpu_torch/cli/) vs the golden MD5 files
 and the JAX package's CLIs: tpuvpxdec on TorchDecoder (device="cpu")
 prints the golden MD5s and writes what the JAX tpuvpxdec writes (output
-patterns, --yv12, WebM input); tpuvpxenc writes the JAX tpuvpxenc's
-bytes (1-pass, two-pass, ARNR altref).
+patterns, --yv12, WebM input); tpuvpxenc with --golden (the host
+Encoder) writes the JAX tpuvpxenc's bytes (1-pass, two-pass, ARNR
+altref). The device encoder's CLI paths are in test_torch_cli_device.py.
 """
 import numpy as np
 import pytest
@@ -112,9 +113,10 @@ def _clip(tmp_path, n, w=96, h=64):
 def test_tpuvpxenc_bytes_match_jax(tmp_path, n, opts):
     clip = _clip(tmp_path, n)
     outs = []
-    for mod, tag in ((jenc, "j"), (tenc, "t")):
+    # the port's CLI on its host encoder (--golden), as the JAX CLI runs
+    for mod, tag, extra in ((jenc, "j", []), (tenc, "t", ["--golden"])):
         out = str(tmp_path / f"{tag}.ivf")
-        assert mod.main([clip, "-o", out, *opts]) == 0
+        assert mod.main([clip, "-o", out, *opts, *extra]) == 0
         outs.append(open(out, "rb").read())
     assert outs[0] == outs[1]
     frames = read_ivf(outs[1]).frames

@@ -9,7 +9,11 @@ the port's TorchDecoder / TorchEncoder run. The asserts are those of
 tests/test_api_examples.py. The decoder examples must also give the JAX
 examples' results frame for frame; the encoder examples' IVF, decoded by
 the port's host decoder, must equal the encoder's own reconstruction.
+vp8_multi_resolution_encoder runs on the port's MultiResEncoder twice: on
+host Encoders against the JAX example as it is, and on TorchEncoder
+layers (CPU) against the JAX example on TPUEncoder layers.
 """
+import functools
 import importlib
 import os
 import sys
@@ -20,7 +24,10 @@ import pytest
 
 from conftest import vector
 from libvpx_opencl_tpu import api as japi
+from libvpx_opencl_tpu.models import multires as jmultires
+from libvpx_opencl_tpu.models.tpu_encoder import TPUEncoder
 from libvpx_opencl_tpu_torch import api as tapi
+from libvpx_opencl_tpu_torch.models import multires
 from libvpx_opencl_tpu_torch.models.refdec import RefDecoder
 from libvpx_opencl_tpu_torch.utils.ivf import read_ivf
 from libvpx_opencl_tpu_torch.utils.md5 import load_golden_md5s
@@ -243,6 +250,33 @@ def test_host_encoder_examples_match_jax(monkeypatch, tmp_path, name):
     mod = importlib.import_module(name)
     want = mod.main(clip, *outs["jax"][:n_args])
     mod = _example(monkeypatch, name)
+    if name == "vp8_multi_resolution_encoder":
+        # the port's class encodes on TorchEncoders unless told otherwise
+        monkeypatch.setattr(mod, "MultiResEncoder", functools.partial(
+            multires.MultiResEncoder, use_device=False))
     assert mod.main(clip, *outs["port"][:n_args]) == want
     for a, b in zip(outs["jax"][:n_args], outs["port"][:n_args]):
+        assert open(a, "rb").read() == open(b, "rb").read()
+
+
+def test_multi_resolution_example_on_device_matches_jax(monkeypatch,
+                                                        tmp_path):
+    """vp8_multi_resolution_encoder with the port's MultiResEncoder on
+    TorchEncoder layers (device="cpu") writes, layer for layer, what the
+    JAX example writes with TPUEncoder layers. Both run at --cpu-used 8:
+    the JAX encoder compiles once per layer geometry, and the default
+    features are held in tests/test_torch_encoder_default.py."""
+    clip = _moving_clip(tmp_path, n=3)
+    outs = {k: [str(tmp_path / f"{k}{i}.ivf") for i in range(2)]
+            for k in ("jax", "port")}
+    mod = importlib.import_module("vp8_multi_resolution_encoder")
+    with monkeypatch.context() as m:
+        m.setattr(jmultires, "Encoder",
+                  functools.partial(TPUEncoder, cpu_used=8))
+        want = mod.main(clip, *outs["jax"])
+    mod = _example(monkeypatch, "vp8_multi_resolution_encoder")
+    monkeypatch.setattr(mod, "MultiResEncoder", functools.partial(
+        multires.MultiResEncoder, device="cpu", cpu_used=8))
+    assert mod.main(clip, *outs["port"]) == want == 3
+    for a, b in zip(outs["jax"], outs["port"]):
         assert open(a, "rb").read() == open(b, "rb").read()

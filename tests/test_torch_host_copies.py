@@ -60,8 +60,8 @@ def test_temporal_layers():
 def test_multires():
     frames = synth(64, 48, 2)
     out = []
-    for M in (multires, jmultires):
-        enc = M.MultiResEncoder(64, 48, qindices=(36, 32))
+    for M, kw in ((multires, dict(use_device=False)), (jmultires, {})):
+        enc = M.MultiResEncoder(64, 48, qindices=(36, 32), **kw)
         out.append([enc.encode_frame(*f) for f in frames])
     assert out[0] == out[1]
     np.testing.assert_array_equal(
