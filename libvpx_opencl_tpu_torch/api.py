@@ -30,6 +30,7 @@ from .models.torch_decoder import TorchDecoder, load_reference
 from .models.torch_encoder import TorchEncoder
 from .ops import postproc as PP
 from .ops.metrics import frame_psnr
+from .utils import trace
 
 # init flags (vpx_decoder.h:68-71, vpx_encoder.h:75-76)
 USE_POSTPROC = "postproc"
@@ -104,32 +105,35 @@ class CodecDecoder:
         JAX class."""
         frames, self._frames = self._frames, []
         for fb in frames:
-            y, u, v = fb.visible()
-            if USE_POSTPROC in self.flags and self._pp.flags:
-                y, u, v = PP.post_proc_frame(
-                    y, u, v, self._dec.base_qindex, self._pp.flags,
-                    self._pp.noise_level)
-                if "mfqe" in self._pp.flags:
-                    # VP8D_MFQE (postproc.c:929-948): blend with the
-                    # previous enhanced output on quality jumps
-                    d = self._dec
-                    cur = (np.asarray(y), np.asarray(u), np.asarray(v))
-                    if (self._mfqe_prev is not None and
-                            self._mfqe_qprev is not None and
-                            d.base_qindex - self._mfqe_qprev >= 0):
-                        y, u, v = PP.mfqe_frame(
-                            cur, self._mfqe_prev, d.base_qindex,
-                            self._mfqe_qprev, d.mode, d.mv,
-                            keyframe=(d.frame_type == 0))
-                    self._mfqe_prev = (np.asarray(y), np.asarray(u),
-                                       np.asarray(v))
-                    self._mfqe_qprev = d.base_qindex
-                y, u, v = PP.debug_overlay(
-                    y, u, v, self._pp.flags,
-                    mode=getattr(self._dec, "mode", None),
-                    ref_frame=getattr(self._dec, "ref_frame", None),
-                    mvs=getattr(self._dec, "mv", None))
-            yield np.asarray(y), np.asarray(u), np.asarray(v)
+            with trace.span("dec.get_frame", frame=getattr(fb, "frame",
+                                                             None)):
+                y, u, v = fb.visible()
+                if USE_POSTPROC in self.flags and self._pp.flags:
+                    y, u, v = PP.post_proc_frame(
+                        y, u, v, self._dec.base_qindex, self._pp.flags,
+                        self._pp.noise_level)
+                    if "mfqe" in self._pp.flags:
+                        # VP8D_MFQE (postproc.c:929-948): blend with the
+                        # previous enhanced output on quality jumps
+                        d = self._dec
+                        cur = (np.asarray(y), np.asarray(u), np.asarray(v))
+                        if (self._mfqe_prev is not None and
+                                self._mfqe_qprev is not None and
+                                d.base_qindex - self._mfqe_qprev >= 0):
+                            y, u, v = PP.mfqe_frame(
+                                cur, self._mfqe_prev, d.base_qindex,
+                                self._mfqe_qprev, d.mode, d.mv,
+                                keyframe=(d.frame_type == 0))
+                        self._mfqe_prev = (np.asarray(y), np.asarray(u),
+                                           np.asarray(v))
+                        self._mfqe_qprev = d.base_qindex
+                    y, u, v = PP.debug_overlay(
+                        y, u, v, self._pp.flags,
+                        mode=getattr(self._dec, "mode", None),
+                        ref_frame=getattr(self._dec, "ref_frame", None),
+                        mvs=getattr(self._dec, "mv", None))
+                planes = np.asarray(y), np.asarray(u), np.asarray(v)
+            yield planes
 
     # --- control calls ---
     def set_postproc(self, cfg: PostProcCfg):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import tables as T
+from ..utils import trace
 from .boolcoder import BoolDecoder
 
 # MB prediction modes (blockd.h MB_PREDICTION_MODE)
@@ -454,13 +455,14 @@ class RefDecoder:
         """Decode without materializing pixels to the host (the TPU path
         leaves the frame device-resident; read via self.frame_to_show).
         Returns the show_frame flag."""
-        self.corrupted = False
-        if self.ec_enabled and self.decoded_key_frame:
-            try:
-                return self._decode_frame_core(data)
-            except Exception:
-                return self.conceal_missing_frame()
-        return self._decode_frame_core(data)
+        with trace.span("dec.decode", new_frame=True, cpu=True):
+            self.corrupted = False
+            if self.ec_enabled and self.decoded_key_frame:
+                try:
+                    return self._decode_frame_core(data)
+                except Exception:
+                    return self.conceal_missing_frame()
+            return self._decode_frame_core(data)
 
     def conceal_missing_frame(self) -> int:
         """Conceal a missing/corrupt frame from the LAST reference
@@ -473,7 +475,32 @@ class RefDecoder:
         return 1
 
     def _decode_frame_core(self, data: bytes) -> int:
-        h = {}
+        with trace.span("dec.header"):
+            show_frame, bc = self._read_header(data)
+        with trace.span("dec.modes"):
+            self._decode_modes(bc)
+        if bc.error():
+            # read past the end of partition 0 (vp8dx_bool_error,
+            # corruption tracking decodframe.c:1139-1143)
+            self.corrupted = True
+            if self.ec_enabled and self.mvs_corrupt_from is None:
+                # keyframe / no motion history: whole-frame concealment
+                raise ValueError("corrupt partition 0")
+        self._reconstruct()
+        if any(p.error() for p in self.bool_parts):
+            self.corrupted = True
+        self._swap_and_filter()
+        # motion history for next frame's per-MB concealment
+        # (error_concealment.c estimate_missing_mvs reads prior-frame MVs)
+        self.prev_mv = self.mv.copy()
+        self.prev_ref = self.ref_frame.copy()
+        self.decoded_key_frame = True
+        return show_frame
+
+    def _read_header(self, data):
+        """The frame header and the token partitions' bounds
+        (decodframe.c:690-1054); returns (show_frame, partition 0's bool
+        decoder, positioned at the modes)."""
         tag = data[0] | (data[1] << 8) | (data[2] << 16)
         frame_type = tag & 1
         version = (tag >> 1) & 7
@@ -576,24 +603,7 @@ class RefDecoder:
 
         self.mvs_corrupt_from = None
         self.corrupt_mb = None
-        self._decode_modes(bc)
-        if bc.error():
-            # read past the end of partition 0 (vp8dx_bool_error,
-            # corruption tracking decodframe.c:1139-1143)
-            self.corrupted = True
-            if self.ec_enabled and self.mvs_corrupt_from is None:
-                # keyframe / no motion history: whole-frame concealment
-                raise ValueError("corrupt partition 0")
-        self._reconstruct()
-        if any(p.error() for p in self.bool_parts):
-            self.corrupted = True
-        self._swap_and_filter()
-        # motion history for next frame's per-MB concealment
-        # (error_concealment.c estimate_missing_mvs reads prior-frame MVs)
-        self.prev_mv = self.mv.copy()
-        self.prev_ref = self.ref_frame.copy()
-        self.decoded_key_frame = True
-        return show_frame
+        return show_frame, bc
 
     def _get_delta_q(self, bc, prev):
         if bc.read_bit():

@@ -30,6 +30,7 @@ import torch
 from ..ops import predict as P
 from ..ops import transforms as tf
 from ..ops import wavefront as W
+from ..utils import trace
 from .refdec import (B_PRED, SPLITMV, INTRA_FRAME, BORDER, RefDecoder,
                      dequant_factors, _s16)
 
@@ -167,25 +168,30 @@ def decode_frame_device(R, C, simple_lf, do_lf, refs, mb, taps, split):
 class DeviceFrame:
     """Device-resident frame with the FrameBuffer interface pieces the
     decoder lifecycle uses. `ready` (CUDA only) is recorded on the decode
-    stream once the frame's work is enqueued."""
+    stream once the frame's work is enqueued; `frame` is the trace's frame
+    id of the frame that made it (None while tracing is off)."""
 
     def __init__(self, y, u, v, w, h, ready=None):
         self.y, self.u, self.v = y, u, v
         self.w, self.h = w, h
         self.ready = ready
+        self.frame = trace.frame()
         self._packed = None
 
     def packed(self):
         """Visible pixels, cropped and concatenated into one host uint8
         buffer (one device-to-host copy)."""
         if self._packed is None:
-            if self.ready is not None:
-                self.ready.synchronize()
+            with trace.span("dec.device_wait"):
+                if self.ready is not None:
+                    self.ready.synchronize()
             ch, cw = (self.h + 1) // 2, (self.w + 1) // 2
-            self._packed = torch.cat([
-                self.y[B:B + self.h, B:B + self.w].reshape(-1),
-                self.u[B2:B2 + ch, B2:B2 + cw].reshape(-1),
-                self.v[B2:B2 + ch, B2:B2 + cw].reshape(-1)]).cpu().numpy()
+            with trace.span("dec.readback_copy"):
+                self._packed = torch.cat([
+                    self.y[B:B + self.h, B:B + self.w].reshape(-1),
+                    self.u[B2:B2 + ch, B2:B2 + cw].reshape(-1),
+                    self.v[B2:B2 + ch, B2:B2 + cw].reshape(-1)]) \
+                    .cpu().numpy()
         return self._packed
 
     def visible(self):
@@ -200,15 +206,18 @@ class DeviceFrame:
 class FrameFuture:
     """frame_to_show handle while the dispatch worker is still uploading /
     enqueueing the frame: resolves to the DeviceFrame on first pixel access
-    so the host entropy thread never blocks on the device."""
+    so the host entropy thread never blocks on the device. `frame` is the
+    trace's frame id, as DeviceFrame's."""
 
     def __init__(self, fut, dec):
         self._fut = fut
         self._dec = dec
+        self.frame = trace.frame()
 
     def _f(self):
         try:
-            return self._fut.result()
+            with trace.span("dec.join_wait"):
+                return self._fut.result()
         except BaseException:
             # the decoder's first failure is reported here, not again
             self._dec._raise_dispatch_error()
@@ -329,8 +338,10 @@ class TorchDecoder(RefDecoder):
         # report a failure the worker has had; a dispatch still running is
         # not waited for, so the entropy thread keeps its overlap with it
         self._raise_dispatch_error()
-        self._detokenize_all()
-        np_args = self._prep_arrays()
+        with trace.span("dec.detokenize"):
+            self._detokenize_all()
+        with trace.span("dec.prep"):
+            np_args = self._prep_arrays()
         meta = (self.mb_rows, self.mb_cols, bool(self.simple_filter),
                 self.filter_level > 0, self.frame_type,
                 getattr(self, "copy_to_arf", 0),
@@ -339,19 +350,23 @@ class TorchDecoder(RefDecoder):
                 getattr(self, "refresh_alt", 0),
                 getattr(self, "refresh_last", 1),
                 bool(self.use_bilinear), self.w, self.h)
-        self._pending = self._dispatch_pool.submit(self._dispatch,
-                                                   np_args, meta)
+        with trace.span("dec.submit"):
+            self._pending = self._dispatch_pool.submit(
+                self._dispatch, np_args, meta, trace.handoff())
 
-    def _dispatch(self, np_args, meta):
+    def _dispatch(self, np_args, meta, origin=None):
         """The dispatch worker's job for one frame. It keeps its first
         failure for the entropy thread and refuses the frames queued behind
         it until that has been reported, so none of them advances the ring
-        past the last committed frame."""
+        past the last committed frame. `origin` (trace.handoff) carries
+        the frame id and parent span from the entropy thread."""
+        frame, parent = trace.picked_up("dec.queue_wait", origin)
         if self._dispatch_error is not None:
             raise RuntimeError("frame not dispatched: an earlier dispatch "
                                "failed")
         try:
-            return self._worker_dispatch(np_args, meta)
+            with trace.span("dec.dispatch", frame=frame, parent=parent):
+                return self._worker_dispatch(np_args, meta)
         except BaseException as e:
             self._dispatch_error = e
             raise
@@ -366,7 +381,8 @@ class TorchDecoder(RefDecoder):
                                        pin_memory=True)
             self._pinned_free = None
         if self._pinned_free is not None:
-            self._pinned_free.synchronize()
+            with trace.span("dec.pinned_wait"):
+                self._pinned_free.synchronize()
         self._pinned.numpy()[...] = qcoeff
         dev = self._pinned.to(self.device, non_blocking=True)
         self._pinned_free = torch.cuda.Event()
@@ -406,26 +422,33 @@ class TorchDecoder(RefDecoder):
         table, qcoeff, inter_idx, taps, split = np_args
         dev = self.device
         with self._on_stream(), torch.inference_mode():
-            tdev = self._taps.get(use_bilinear)
-            if tdev is None:
-                tdev = torch.from_numpy(taps).to(dev)
-                self._taps[use_bilinear] = tdev
-            mb = {"table": torch.from_numpy(table).to(dev),
-                  "qcoeff": self._upload_qcoeff(qcoeff),
-                  "inter_idx": torch.from_numpy(inter_idx).to(dev)}
-            refs = None
-            if len(inter_idx):
-                refs = tuple(torch.stack([getattr(f, p) for f in (
-                    self.last, self.golden, self.altref)])
-                    for p in ("y", "u", "v"))
-            if split is not None:
-                split = tuple(torch.from_numpy(a).to(dev) for a in split)
-            cy, cu, cv = decode_frame_device(R, C, simple_lf, do_lf, refs,
-                                             mb, tdev, split)
-            ready = None
-            if self._stream is not None:
-                ready = torch.cuda.Event()
-                ready.record(self._stream)
+            with trace.span("dec.upload") as sp:
+                tdev = self._taps.get(use_bilinear)
+                if sp:
+                    sent = (table, qcoeff, inter_idx, *(split or ()),
+                            *((taps,) if tdev is None else ()))
+                    sp.attrs["bytes"] = sum(a.nbytes for a in sent)
+                if tdev is None:
+                    tdev = torch.from_numpy(taps).to(dev)
+                    self._taps[use_bilinear] = tdev
+                mb = {"table": torch.from_numpy(table).to(dev),
+                      "qcoeff": self._upload_qcoeff(qcoeff),
+                      "inter_idx": torch.from_numpy(inter_idx).to(dev)}
+                if split is not None:
+                    split = tuple(torch.from_numpy(a).to(dev)
+                                  for a in split)
+            with trace.span("dec.enqueue"):
+                refs = None
+                if len(inter_idx):
+                    refs = tuple(torch.stack([getattr(f, p) for f in (
+                        self.last, self.golden, self.altref)])
+                        for p in ("y", "u", "v"))
+                cy, cu, cv = decode_frame_device(R, C, simple_lf, do_lf,
+                                                 refs, mb, tdev, split)
+                ready = None
+                if self._stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self._stream)
         return DeviceFrame(cy, cu, cv, w, h, ready)
 
     def _upload_frame(self, planes):

@@ -45,7 +45,7 @@ from ..ops import rd_device as RD
 from ..ops import tables as T
 from ..ops import transforms as tf
 from ..ops import wavefront as W
-from ..utils import native
+from ..utils import native, trace
 from . import rdopt, refdec, wavefront as wf
 from .encoder import Encoder, SpeedFeatures, _default_token_costs
 from .refdec import (DC_PRED, INTRA_FRAME, LAST_FRAME, GOLDEN_FRAME,
@@ -386,8 +386,9 @@ def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
     ext = None
     if use_trellis:
         # the wavefront's inter batch, in MB order (one small host copy)
-        idx = torch.from_numpy(np.flatnonzero(~intra.cpu().numpy())) \
-            .to(dev)
+        with trace.host_wait():
+            intra_np = intra.cpu().numpy()
+        idx = torch.from_numpy(np.flatnonzero(~intra_np)).to(dev)
         if idx.shape[0]:
             dqs = (dq_y1[idx], dq_y2[idx], dq_uv[idx])
             coefs, q0, e0 = wf.transform_quant(
@@ -460,6 +461,13 @@ class TorchEncoder(Encoder):
     def encode_frame(self, y, u, v, keyframe=None, refresh_last=True,
                      refresh_golden=None, commit=True, show=True,
                      refresh_alt=False):
+        with trace.span("enc.encode", new_frame=True):
+            return self._encode_frame(y, u, v, keyframe, refresh_last,
+                                      refresh_golden, commit, show,
+                                      refresh_alt)
+
+    def _encode_frame(self, y, u, v, keyframe, refresh_last, refresh_golden,
+                      commit, show, refresh_alt):
         if keyframe is None:
             keyframe = self.frame_count == 0
         if keyframe:
@@ -475,143 +483,152 @@ class TorchEncoder(Encoder):
         self.show_frame = bool(show) or keyframe
         R, C = self.R, self.C
         N = R * C
-        # source planes, aligned + padded like the host encoder
-        src = refdec.FrameBuffer(self.w, self.h)
-        sy_, su_, sv_ = src.visible()
-        sy_[:] = y
-        su_[:] = u
-        sv_[:] = v
-        bb, bb2 = BORDER, BORDER // 2
-        src.y[bb:bb + src.ah, bb + self.w:bb + src.aw] = \
-            src.y[bb:bb + src.ah, bb + self.w - 1:bb + self.w]
-        src.y[bb + self.h:bb + src.ah, bb:bb + src.aw] = \
-            src.y[bb + self.h - 1:bb + self.h, bb:bb + src.aw]
-        cw, ch = (self.w + 1) // 2, (self.h + 1) // 2
-        for p in (src.u, src.v):
-            p[bb2:bb2 + src.ah // 2, bb2 + cw:bb2 + src.aw // 2] = \
-                p[bb2:bb2 + src.ah // 2, bb2 + cw - 1:bb2 + cw]
-            p[bb2 + ch:bb2 + src.ah // 2, bb2:bb2 + src.aw // 2] = \
-                p[bb2 + ch - 1:bb2 + ch, bb2:bb2 + src.aw // 2]
+        with trace.span("enc.source"):
+            # source planes, aligned + padded like the host encoder
+            src = refdec.FrameBuffer(self.w, self.h)
+            sy_, su_, sv_ = src.visible()
+            sy_[:] = y
+            su_[:] = u
+            sv_[:] = v
+            bb, bb2 = BORDER, BORDER // 2
+            src.y[bb:bb + src.ah, bb + self.w:bb + src.aw] = \
+                src.y[bb:bb + src.ah, bb + self.w - 1:bb + self.w]
+            src.y[bb + self.h:bb + src.ah, bb:bb + src.aw] = \
+                src.y[bb + self.h - 1:bb + self.h, bb:bb + src.aw]
+            cw, ch = (self.w + 1) // 2, (self.h + 1) // 2
+            for p in (src.u, src.v):
+                p[bb2:bb2 + src.ah // 2, bb2 + cw:bb2 + src.aw // 2] = \
+                    p[bb2:bb2 + src.ah // 2, bb2 + cw - 1:bb2 + cw]
+                p[bb2 + ch:bb2 + src.ah // 2, bb2:bb2 + src.aw // 2] = \
+                    p[bb2 + ch - 1:bb2 + ch, bb2:bb2 + src.aw // 2]
 
-        j = self._dev
-        src_y_pl = j(src.y, np.uint8)
-        src_u_pl = j(src.u, np.uint8)
-        src_v_pl = j(src.v, np.uint8)
-        yb, ub, vb = W.planes_to_blocks(R, C, src_y_pl, src_u_pl, src_v_pl)
-        taps = j(P.SIXTAP_TABLE)
+            j = self._dev
+            src_y_pl = j(src.y, np.uint8)
+            src_u_pl = j(src.u, np.uint8)
+            src_v_pl = j(src.v, np.uint8)
+            yb, ub, vb = W.planes_to_blocks(R, C, src_y_pl, src_u_pl, src_v_pl)
+            taps = j(P.SIXTAP_TABLE)
 
-        mbr = np.arange(N) // C
-        mbc = np.arange(N) % C
-        lo_r = j((-(mbr * 16) - 16) * 8)
-        hi_r = j(((R - 1 - mbr) * 16 + 16) * 8)
-        lo_c = j((-(mbc * 16) - 16) * 8)
-        hi_c = j(((C - 1 - mbc) * 16 + 16) * 8)
+            mbr = np.arange(N) // C
+            mbc = np.arange(N) % C
+            lo_r = j((-(mbr * 16) - 16) * 8)
+            hi_r = j(((R - 1 - mbr) * 16 + 16) * 8)
+            lo_c = j((-(mbc * 16) - 16) * 8)
+            hi_c = j(((C - 1 - mbc) * 16 + 16) * 8)
 
-        dqs = dequant_factors(self.qindex, 0, 0, 0, 0, 0)
-        self.dq_y1, self.dq_y2, self.dq_uv = dqs
-        if self.seg_map_enc is not None:
-            # per-segment quantizers (the decoder applies per-segment
-            # dequant, mb_init_dequantizer decodframe.c:74-89: the device
-            # quantizer must match or the closed loop drifts)
-            per = [dequant_factors(
-                min(127, max(0, self.qindex + self.seg_q_deltas[s])),
-                0, 0, 0, 0, 0) for s in range(4)]
-            tab = np.asarray(per, np.int32)            # [4, 3, 2]
-            segs = self.seg_map_enc.reshape(N)
-            dq1, dq2, dqu = (j(tab[segs, k]) for k in range(3))
-            # per-MB quantizer index (zbin factor + RD), segment-aware
-            qdel = np.asarray(self.seg_q_deltas, np.int32)
-            qx_np = np.clip(self.qindex + qdel[segs], 0, 127)
-        else:
-            dq1, dq2, dqu = (j(np.tile(np.asarray(d, np.int32), (N, 1)))
-                             for d in dqs)
-            qx_np = np.full(N, self.qindex, np.int32)
-        qidx = j(qx_np)
+            dqs = dequant_factors(self.qindex, 0, 0, 0, 0, 0)
+            self.dq_y1, self.dq_y2, self.dq_uv = dqs
+            if self.seg_map_enc is not None:
+                # per-segment quantizers (the decoder applies per-segment
+                # dequant, mb_init_dequantizer decodframe.c:74-89: the device
+                # quantizer must match or the closed loop drifts)
+                per = [dequant_factors(
+                    min(127, max(0, self.qindex + self.seg_q_deltas[s])),
+                    0, 0, 0, 0, 0) for s in range(4)]
+                tab = np.asarray(per, np.int32)            # [4, 3, 2]
+                segs = self.seg_map_enc.reshape(N)
+                dq1, dq2, dqu = (j(tab[segs, k]) for k in range(3))
+                # per-MB quantizer index (zbin factor + RD), segment-aware
+                qdel = np.asarray(self.seg_q_deltas, np.int32)
+                qx_np = np.clip(self.qindex + qdel[segs], 0, 127)
+            else:
+                dq1, dq2, dqu = (j(np.tile(np.asarray(d, np.int32), (N, 1)))
+                                 for d in dqs)
+                qx_np = np.full(N, self.qindex, np.int32)
+            qidx = j(qx_np)
 
-        # RD decision constants (vp8_initialize_rd_consts behavior)
-        rdm, rdd, _epb = rdopt.rd_consts(self.qindex)
-        rdm_f = torch.tensor(float(rdm), dtype=torch.float32,
-                             device=self.device)
-        rdd_f = torch.tensor(float(rdd), dtype=torch.float32,
-                             device=self.device)
-        tcb0, tcb1, tcb2, tcb3 = self._tcb
-        bmode_cost = j(rdopt.BMODE_COST)
+            # RD decision constants (vp8_initialize_rd_consts behavior)
+            rdm, rdd, _epb = rdopt.rd_consts(self.qindex)
+            rdm_f = torch.tensor(float(rdm), dtype=torch.float32,
+                                 device=self.device)
+            rdd_f = torch.tensor(float(rdd), dtype=torch.float32,
+                                 device=self.device)
+            tcb0, tcb1, tcb2, tcb3 = self._tcb
+            bmode_cost = j(rdopt.BMODE_COST)
 
-        if keyframe:
-            mv8 = np.zeros((N, 2), np.int32)
-            refk = np.full(N, -1, np.int32)
-            ref_ids = [LAST_FRAME]
-            ymode_d, uvb_d = self._decide_key_fn(
-                R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdm_f, rdd_f,
-                j(rdopt.KF_YMODE_COST[:4]), j(rdopt.KF_UV_MODE_COST))
-            ref_frames = [(self.ref_last, LAST_FRAME)]
-        else:
-            # reference set (rdopt.c:1714 candidate refs; identity dedup
-            # like the host encoder's refs list)
-            ref_frames = [(self.ref_last, LAST_FRAME)]
-            if self.sf.multi_ref:
-                if self.ref_gold is not self.ref_last:
-                    ref_frames.append((self.ref_gold, GOLDEN_FRAME))
-                if (self.ref_alt is not self.ref_last and
-                        self.ref_alt is not self.ref_gold):
-                    ref_frames.append((self.ref_alt, ALTREF_FRAME))
-            ref_ids = [rid for _, rid in ref_frames]
-        refs_y, refs_u, refs_v = (
-            torch.stack([getattr(f, p) for f, _ in ref_frames])
-            for p in ("y", "u", "v"))
-        if not keyframe:
-            lo = np.stack([-(mbr * 16) - 16, -(mbc * 16) - 16], 1)
-            hi = np.stack([(R - 1 - mbr) * 16 + 16, (C - 1 - mbc) * 16 + 16],
-                          1)
-            centers = np.clip(self.prev_mv >> 3, lo, hi)
-            # MV-rate cost tables + per-MB predictor (the previous frame's
-            # MV stands in for best_ref_mv during the search; the lattice
-            # best_mv prices the NEWMV candidates) + sad-per-bit
-            mvcost = j(np.stack([rdopt.MV_COST[0], rdopt.MV_COST[1]]))
-            sadpb = int(ME.SAD_PER_BIT16[self.qindex])
-            # per-ref header signaling costs (intra/last/gf tree)
-            c_in = rdopt.cost1(self.prob_intra)
-            ci0 = rdopt.cost0(self.prob_intra)
-            ci1_list = []
-            for rid in ref_ids:
-                if rid == LAST_FRAME:
-                    ci1_list.append(c_in + rdopt.cost0(self.prob_last))
-                elif rid == GOLDEN_FRAME:
-                    ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
-                                    rdopt.cost0(self.prob_gf))
-                else:
-                    ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
-                                    rdopt.cost1(self.prob_gf))
-            me_step = 1 if self.sf.exhaustive_me else 2
-            mv8_d, refk_d, ymode_d, uvb_d = self._decide_inter_fn(
-                R, C, len(ref_frames), me_step, bool(self.sf.bpred),
-                refs_y, refs_u, refs_v,
-                src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                j(centers), taps, lo_r, hi_r, lo_c, hi_c,
-                mvcost, j(self.prev_mv), sadpb, tcb0, tcb1, tcb2, tcb3,
-                dq1, dq2, dqu, qidx, rdm_f, rdd_f,
-                j(rdopt.YMODE_COST[:5]), j(rdopt.UV_MODE_COST), bmode_cost,
-                ci0, j(ci1_list),
-                j(T.MODE_CONTEXTS), j(rdopt._C0), j(rdopt._C1))
-            mv8 = mv8_d.cpu().numpy().astype(np.int32)
-            refk = refk_d.cpu().numpy().astype(np.int32)
-        intra = refk < 0
-        ymode = ymode_d.cpu().numpy().astype(np.int32)
-        uvmode = uvb_d.cpu().numpy().astype(np.int32)
+        with trace.span("enc.decision", device=self.device) as sp:
+            if keyframe:
+                mv8 = np.zeros((N, 2), np.int32)
+                refk = np.full(N, -1, np.int32)
+                ref_ids = [LAST_FRAME]
+                ymode_d, uvb_d = self._decide_key_fn(
+                    R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
+                    tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdm_f, rdd_f,
+                    j(rdopt.KF_YMODE_COST[:4]), j(rdopt.KF_UV_MODE_COST))
+                ref_frames = [(self.ref_last, LAST_FRAME)]
+            else:
+                # reference set (rdopt.c:1714 candidate refs; identity dedup
+                # like the host encoder's refs list)
+                ref_frames = [(self.ref_last, LAST_FRAME)]
+                if self.sf.multi_ref:
+                    if self.ref_gold is not self.ref_last:
+                        ref_frames.append((self.ref_gold, GOLDEN_FRAME))
+                    if (self.ref_alt is not self.ref_last and
+                            self.ref_alt is not self.ref_gold):
+                        ref_frames.append((self.ref_alt, ALTREF_FRAME))
+                ref_ids = [rid for _, rid in ref_frames]
+            refs_y, refs_u, refs_v = (
+                torch.stack([getattr(f, p) for f, _ in ref_frames])
+                for p in ("y", "u", "v"))
+            if not keyframe:
+                lo = np.stack([-(mbr * 16) - 16, -(mbc * 16) - 16], 1)
+                hi = np.stack([(R - 1 - mbr) * 16 + 16,
+                               (C - 1 - mbc) * 16 + 16], 1)
+                centers = np.clip(self.prev_mv >> 3, lo, hi)
+                # MV-rate cost tables + per-MB predictor (the previous frame's
+                # MV stands in for best_ref_mv during the search; the lattice
+                # best_mv prices the NEWMV candidates) + sad-per-bit
+                mvcost = j(np.stack([rdopt.MV_COST[0], rdopt.MV_COST[1]]))
+                sadpb = int(ME.SAD_PER_BIT16[self.qindex])
+                # per-ref header signaling costs (intra/last/gf tree)
+                c_in = rdopt.cost1(self.prob_intra)
+                ci0 = rdopt.cost0(self.prob_intra)
+                ci1_list = []
+                for rid in ref_ids:
+                    if rid == LAST_FRAME:
+                        ci1_list.append(c_in + rdopt.cost0(self.prob_last))
+                    elif rid == GOLDEN_FRAME:
+                        ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
+                                        rdopt.cost0(self.prob_gf))
+                    else:
+                        ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
+                                        rdopt.cost1(self.prob_gf))
+                me_step = 1 if self.sf.exhaustive_me else 2
+                mv8_d, refk_d, ymode_d, uvb_d = self._decide_inter_fn(
+                    R, C, len(ref_frames), me_step, bool(self.sf.bpred),
+                    refs_y, refs_u, refs_v,
+                    src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
+                    j(centers), taps, lo_r, hi_r, lo_c, hi_c,
+                    mvcost, j(self.prev_mv), sadpb, tcb0, tcb1, tcb2, tcb3,
+                    dq1, dq2, dqu, qidx, rdm_f, rdd_f,
+                    j(rdopt.YMODE_COST[:5]), j(rdopt.UV_MODE_COST), bmode_cost,
+                    ci0, j(ci1_list),
+                    j(T.MODE_CONTEXTS), j(rdopt._C0), j(rdopt._C1))
+            sp.device_end()
+            with trace.host_wait():
+                if not keyframe:
+                    mv8 = mv8_d.cpu().numpy().astype(np.int32)
+                    refk = refk_d.cpu().numpy().astype(np.int32)
+                ymode = ymode_d.cpu().numpy().astype(np.int32)
+                uvmode = uvb_d.cpu().numpy().astype(np.int32)
+            intra = refk < 0
 
-        # frames without a B_PRED MB (every keyframe: _decide_rd_key has no
-        # B_PRED candidate) skip the wavefront's B_PRED lanes
-        has_bpred = bool((ymode == W.B_PRED_M).any())
-        qcoeff_d, eobs_d, uv_mode_d, ry, ru, rv, bmodes_d = self._encode_fn(
-            R, C, bool(self.sf.trellis), refs_y, refs_u, refs_v, j(refk),
-            yb, ub, vb, j(ymode), j(uvmode), j(intra, bool), j(mv8), taps,
-            dq1, dq2, dqu, qidx, tcb0, tcb1, tcb2,
-            bmode_cost if has_bpred else None, rdm_f, rdd_f)
-        qcoeff = qcoeff_d.cpu().numpy()
-        eobs = eobs_d.cpu().numpy()
-        uv_mode = uv_mode_d.cpu().numpy()
-        bmodes = bmodes_d.cpu().numpy()
+        with trace.span("enc.encode_mbs", device=self.device) as sp:
+            # frames without a B_PRED MB (every keyframe: _decide_rd_key has
+            # no B_PRED candidate) skip the wavefront's B_PRED lanes
+            has_bpred = bool((ymode == W.B_PRED_M).any())
+            (qcoeff_d, eobs_d, uv_mode_d, ry, ru, rv,
+             bmodes_d) = self._encode_fn(
+                R, C, bool(self.sf.trellis), refs_y, refs_u, refs_v, j(refk),
+                yb, ub, vb, j(ymode), j(uvmode), j(intra, bool), j(mv8), taps,
+                dq1, dq2, dqu, qidx, tcb0, tcb1, tcb2,
+                bmode_cost if has_bpred else None, rdm_f, rdd_f)
+            sp.device_end()
+            with trace.host_wait():
+                qcoeff = qcoeff_d.cpu().numpy()
+                eobs = eobs_d.cpu().numpy()
+                uv_mode = uv_mode_d.cpu().numpy()
+                bmodes = bmodes_d.cpu().numpy()
 
         # host-side grids for packing
         self.mode = np.zeros((R + 1, C + 1), np.int32)
@@ -635,7 +652,8 @@ class TorchEncoder(Encoder):
             # the skip grid is computed below; the lattice does not read
             # it, pass zeros
             self.skip = np.zeros((R, C), np.int32)
-            native.map_mv_modes_native(native.get_lib(), self)
+            with trace.span("enc.mv_modes"):
+                native.map_mv_modes_native(native.get_lib(), self)
 
         # skip decision (B_PRED MBs have no Y2: e[24] == 0 and their Y
         # eobs start at 0; every other MB's 16 Y eobs start at 1)
@@ -650,11 +668,13 @@ class TorchEncoder(Encoder):
         # / onyx_if.c:3071): enqueue the loop filter BEFORE packing. CUDA
         # work is asynchronous, so the filter runs on the card while the
         # host packs the bitstream; a recode discards the pending result.
-        lf_params = W.pack_lf_params(
-            *(j(a) for a in self._lf_params(keyframe)))
-        lf_out = self._lf_fn(R, C, self.filter_level > 0, ry, ru, rv,
-                             lf_params)
-        payload = self._pack(keyframe)
+        with trace.span("enc.lf"):
+            lf_params = W.pack_lf_params(
+                *(j(a) for a in self._lf_params(keyframe)))
+            lf_out = self._lf_fn(R, C, self.filter_level > 0, ry, ru, rv,
+                                 lf_params)
+        with trace.span("enc.pack"):
+            payload = self._pack(keyframe)
         self._pending = (keyframe, lf_out, mv8)
         if commit:
             self.commit_frame(payload)

@@ -48,6 +48,7 @@ from ..ops import predict as P
 from ..ops import rd_device as RD
 from ..ops import transforms as tf
 from ..ops import wavefront as W
+from ..utils import trace
 
 #: columns of K5's per-MB parameter rows (pack_encode_params)
 ENC_COLS = 10
@@ -244,7 +245,8 @@ def _frame_setup(R, C, srcs, inters, mode, intra, dqs, ext, bmode_cost,
     ib = intra.bool()
     flags = ib.to(torch.uint8) | (((mode == W.B_PRED_M) & ib)
                                   .to(torch.uint8) << 1)
-    flags = flags.cpu().numpy()
+    with trace.host_wait():
+        flags = flags.cpu().numpy()
     intra_np, bpred_np = (flags & 1) > 0, (flags & 2) > 0
     if bpred_np.any() and bmode_cost is None:
         raise ValueError("B_PRED macroblocks need bmode_cost, rdmult and "

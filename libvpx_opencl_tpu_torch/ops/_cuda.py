@@ -18,7 +18,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -54,8 +53,7 @@ _count_lock = threading.Lock()
 
 _fns = None
 _lock = threading.Lock()
-#: seconds the last build took, and nvcc's -Xptxas -v report per kernel
-build_seconds = None
+#: nvcc's -Xptxas -v report per kernel, from the last build
 ptxas_report = {}
 
 
@@ -113,15 +111,13 @@ def _build(names):
 def load():
     """Build (if stale) and bind every kernel; returns {name: C function}.
     Raises RuntimeError if nvcc is missing or a build fails."""
-    global _fns, build_seconds
+    global _fns
     with _lock:
         if _fns is not None:
             return _fns
-        t0 = time.perf_counter()
         stale = [n for n in KERNELS if _stale(n)]
         if stale:
             _build(stale)
-        build_seconds = time.perf_counter() - t0
         fns = {}
         for name, (_src, entry, argtypes) in KERNELS.items():
             fn = getattr(ctypes.CDLL(_so_path(name)), entry)

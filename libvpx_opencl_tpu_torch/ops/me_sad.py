@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _cuda
 
 RNG = 16  # full-pel search radius
@@ -93,9 +94,11 @@ def _check(ref_plane, wy, wx, src_blocks, rng):
         raise ValueError(f"plane {hp}x{wp} is smaller than a {w}x{w} window")
     if n:
         # both conditions come back in one host read
-        bad_win, bad_src = torch.stack([
+        checks = torch.stack([
             ((wy < 0) | (wy > hp - w) | (wx < 0) | (wx > wp - w)).any(),
-            ((src_blocks < 0) | (src_blocks > 255)).any()]).tolist()
+            ((src_blocks < 0) | (src_blocks > 255)).any()])
+        with trace.host_wait():
+            bad_win, bad_src = checks.tolist()
         if bad_win:
             raise ValueError(f"a search window leaves the {hp}x{wp} plane: "
                              f"wy in [{int(wy.min())}, {int(wy.max())}], "

@@ -28,6 +28,7 @@ recon uses it.
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import tables as T
 
 # unified 6-tap tables (int32): index 0..7 = subpel phase
@@ -159,7 +160,9 @@ def bpred_4x4_all(above8, left4, tl):
     int32. Returns [10, M, 4, 4] in bmode order B_DC, B_TM, B_VE, B_HE,
     B_LD, B_RD, B_VR, B_VL, B_HD, B_HU."""
     bank = _bpred_bank(above8, left4, tl)
-    idx = torch.from_numpy(_BANK_IDX).to(bank.device)
+    # a blocking upload: the host waits here for the card's queue
+    with trace.host_wait():
+        idx = torch.from_numpy(_BANK_IDX).to(bank.device)
     return bank[:, idx].permute(1, 0, 2).reshape(10, -1, 4, 4)
 
 

@@ -1,0 +1,12 @@
+"""Device idle time that no stage span names, %: of the profiled tail's
+device-idle time, the part in which no program span but a frame's root
+is open on any thread (program spans placed on the profiler's timeline by
+harness/program_trace.py), time-weighted. A traced run reads it with the
+benchmark's `enc.decision` and `enc.host_pack` wrappers on, whose
+synchronize() brackets add idle time inside those stages. Null without
+device operations."""
+from vp8bench.harness import program_trace as PT
+
+
+def read(ctx):
+    return PT.idle_unnamed_share(ctx)
