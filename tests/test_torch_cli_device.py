@@ -11,14 +11,19 @@ device="cpu") vs the JAX package: bytes equal (tolerance 0).
     driven directly on TorchEncoder(device="cpu") (TorchEncoder at the
     default features equals TPUEncoder in test_torch_encoder_default.py);
   * MultiResEncoder(use_device=True, device="cpu"): both layers equal
-    directly driven TorchEncoders at 96x64 and 48x32 (the class against
-    the JAX class on TPUEncoder layers runs in test_torch_examples.py);
+    directly driven TorchEncoders at 96x64 and 48x32; and
+    examples/vp8_multi_resolution_encoder.py on it writes, layer for
+    layer, what the JAX example writes on TPUEncoder layers at --cpu-used
+    8 (its 96x64 layer reuses the JAX CLI cases' compiled programs);
   * the recode contract under the CLI's rate control: a rejected attempt
     leaves the reference ring, prev_mv and the frame count as they were,
     and a dropped frame commits nothing;
   * --tune ssim needs --golden; --psnr equals the PSNR of the port's host
     decode of the written IVF; without a card the default device raises.
 """
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +31,7 @@ import torch
 from conftest import vector  # noqa: F401  (sys.path + CPU JAX)
 from libvpx_opencl_tpu.cli import tpuvpxenc as jcli
 from libvpx_opencl_tpu.models import encoder as jencoder
+from libvpx_opencl_tpu.models import multires as jmultires
 from libvpx_opencl_tpu.models.tpu_encoder import TPUEncoder
 from libvpx_opencl_tpu_torch.cli import tpuvpxenc as tcli
 from libvpx_opencl_tpu_torch.models import multires
@@ -37,6 +43,7 @@ from libvpx_opencl_tpu_torch.utils.ivf import IvfStream, read_ivf, write_ivf
 from libvpx_opencl_tpu_torch.utils.webm import read_webm
 from libvpx_opencl_tpu_torch.utils.y4m import Y4MReader
 from test_torch_cli import _clip
+from torch_example_helpers import moving_clip, port_example
 
 torch.set_num_threads(1)
 W, H = 96, 64
@@ -147,8 +154,8 @@ def test_multires_layers_match_direct_encoders():
     """MultiResEncoder(device="cpu") builds two TorchEncoders, and each
     layer writes what a directly driven TorchEncoder writes (the class
     against the JAX class on TPUEncoder layers is held in
-    test_torch_examples.py::test_multi_resolution_example_on_device_matches_jax);
-    both layers decode to the encoder's reconstruction."""
+    test_multi_resolution_example_on_device_matches_jax below); both
+    layers decode to the encoder's reconstruction."""
     frames = _frames(3)
     enc = multires.MultiResEncoder(W, H, qindices=(36, 32), device="cpu",
                                    cpu_used=8)
@@ -174,6 +181,29 @@ def test_multires_layers_match_direct_encoders():
             assert show
             assert all(np.array_equal(a, np.asarray(b))
                        for a, b in zip(planes, rec[layer]))
+
+
+def test_multi_resolution_example_on_device_matches_jax(monkeypatch,
+                                                        tmp_path):
+    """vp8_multi_resolution_encoder with the port's MultiResEncoder on
+    TorchEncoder layers (device="cpu") writes, layer for layer, what the
+    JAX example writes with TPUEncoder layers. Both run at --cpu-used 8:
+    the JAX encoder compiles once per layer geometry, and the default
+    features are held in tests/test_torch_encoder_default.py."""
+    clip = moving_clip(tmp_path, n=3)
+    outs = {k: [str(tmp_path / f"{k}{i}.ivf") for i in range(2)]
+            for k in ("jax", "port")}
+    mod = importlib.import_module("vp8_multi_resolution_encoder")
+    with monkeypatch.context() as m:
+        m.setattr(jmultires, "Encoder",
+                  functools.partial(TPUEncoder, cpu_used=8))
+        want = mod.main(clip, *outs["jax"])
+    mod = port_example(monkeypatch, "vp8_multi_resolution_encoder")
+    monkeypatch.setattr(mod, "MultiResEncoder", functools.partial(
+        multires.MultiResEncoder, device="cpu", cpu_used=8))
+    assert mod.main(clip, *outs["port"]) == want == 3
+    for a, b in zip(outs["jax"], outs["port"]):
+        assert open(a, "rb").read() == open(b, "rb").read()
 
 
 def test_recode_and_drop_commit_nothing():
