@@ -47,6 +47,15 @@ COL_LF = COL_INTRA + W.INTRA_COLS   # W.LF_COLS: flevel, mblim, blim, ...
 MB_COLS = COL_UVMV + 2
 
 
+def use_card(device):
+    """Make `device`'s card the calling thread's current one: a thread
+    that enqueues a decoder's work or reads its frames back works under
+    the decoder's card, whichever card its process started on. Nothing
+    for the CPU or for "cuda" without an index (the current card)."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
 def _extend_borders(plane, pad, aw, ah):
     """vp8_yv12_extend_frame_borders (yv12extend.c:23-145), in place, over
     the MB-aligned aw x ah interior."""
@@ -294,8 +303,17 @@ class TorchDecoder(RefDecoder):
         self._sync()
         super()._alloc()
         if self._dispatch_pool is None:
-            self._dispatch_pool = cf.ThreadPoolExecutor(max_workers=1)
+            self._dispatch_pool = cf.ThreadPoolExecutor(
+                max_workers=1, initializer=use_card, initargs=(self.device,))
         self.last = self.golden = self.altref = self._zero_frame()
+
+    def close(self):
+        """Let the dispatch worker finish its frames and end its thread.
+        The decoder takes no frame after it."""
+        pool, self._dispatch_pool = self._dispatch_pool, None
+        self._pending = None
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     def _zero_frame(self):
         """The all-zero frame a new geometry's ring starts from."""

@@ -11,12 +11,15 @@ A record holds the span's name, its start and end on
 optional integer attributes (`attrs`, such as bytes). Parents come from a
 per-thread stack of open spans. Work handed to another thread carries its
 frame id and parent explicitly (`handoff` on the sending thread,
-`picked_up` on the receiving one). A span opened with `cpu=True` also
-reads `time.thread_time_ns` at both ends. A span opened with `device=`
-a CUDA device records a timing event on the current stream when it opens
-and when it closes, or earlier at `device_end()` (after the enqueue, before
-the reads that wait for the work), resolved into `device_ms` by
-`snapshot()` once the work has finished (the caller's own
+`picked_up` on the receiving one). A root opened with `new_frame=True`
+under a span that was given its frame (a handed-over frame, as the
+stream-set decoder's `gop.stream` is) takes that frame's id instead of a
+new one: the streams of one set share the set's id. A span opened with
+`cpu=True` also reads `time.thread_time_ns` at both ends. A span opened
+with `device=` a CUDA device records a timing event on the current stream
+when it opens and when it closes, or earlier at `device_end()` (after the
+enqueue, before the reads that wait for the work), resolved into
+`device_ms` by `snapshot()` once the work has finished (the caller's own
 synchronisation; tracing adds none); on the CPU the work is synchronous
 and `device_ms` is the host clock's from the open to that point.
 
@@ -89,7 +92,7 @@ class Span:
 
     __slots__ = ("name", "id", "parent", "frame", "thread", "t0", "t1",
                  "cpu0", "cpu1", "attrs", "device_ms", "_cpu", "_new",
-                 "_device", "_events")
+                 "_carried", "_device", "_events")
 
     def __init__(self, name, frame=None, parent=None, cpu=False,
                  new_frame=False, device=None):
@@ -98,6 +101,8 @@ class Span:
         self.parent = parent
         self._cpu = cpu
         self._new = new_frame
+        # a frame given, not found: new-frame roots inside take it
+        self._carried = frame is not None
         self._device = device
         self._events = None
         self.cpu0 = self.cpu1 = self.device_ms = None
@@ -110,7 +115,11 @@ class Span:
         self.thread = threading.get_ident()
         if self.parent is None and top is not None:
             self.parent = top.id
-        if self._new:
+        if top is not None and top._carried:
+            self._carried = True
+            if self._new:
+                self.frame = top.frame
+        if self._new and not self._carried:
             self.frame = next(_frame_ids)
         elif self.frame is None and top is not None:
             self.frame = top.frame
@@ -193,7 +202,8 @@ def span(name, frame=None, parent=None, cpu=False, new_frame=False,
          device=None):
     """A span named `name` around a `with` block. The frame and parent
     default to the thread's innermost open span; new_frame=True gives the
-    span the next frame id (the root of a decoded or encoded frame).
+    span the next frame id (the root of a decoded or encoded frame), or,
+    under a span that was given its frame, that frame's id.
     cpu=True adds the thread's CPU time; device= the torch.device whose
     enqueued work the span brackets. The span is false while tracing is
     off, so that attributes are only computed when they are recorded:
@@ -240,12 +250,27 @@ def picked_up(name, origin):
     if origin is None:
         return None, None
     frame_id, parent, t_handed = origin
+    _record(name, frame_id, parent, t_handed, time.perf_counter_ns())
+    return frame_id, parent
+
+
+def interval(name, t0, t1):
+    """Record the span `name` from t0 to t1 (perf_counter_ns), measured
+    elsewhere, on this thread under its innermost open span."""
+    if not _on:
+        return
+    st = _stack()
+    top = st[-1] if st else None
+    _record(name, top.frame if top else None, top.id if top else None, t0,
+            t1)
+
+
+def _record(name, frame_id, parent, t0, t1):
     rec = Span(name, frame_id, parent)
     rec.id = next(_span_ids)
     rec.thread = threading.get_ident()
-    rec.t0, rec.t1 = t_handed, time.perf_counter_ns()
+    rec.t0, rec.t1 = t0, t1
     _keep(rec)
-    return frame_id, parent
 
 
 def snapshot():
