@@ -36,9 +36,14 @@ code != 0). It prints, in order:
     Ni = 1, 31, 32, 33, 2250 and 8160 inter MBs, qindex 0, 4, 24, 63 and
     127, levels up to 2047 (cat6), all-zero and eob-16 blocks: levels and
     eobs exact;
-  * the 1080p decode: MD5 of every frame; K1 launched once per frame, K2
-    once per frame with a filter level;
+  * the 1080p decode: MD5 of every frame; K1 and inter_recon (stages 1-2)
+    launched once per frame, K2 once per frame with a filter level;
   * the six extra streams' MD5 results;
+  * inter_recon (`inter_recon_phases`) against the plain inter_planes on
+    every 1080p frame's inputs (residuals and inter MBs exact), its launch
+    alone and inside the decoder by CUDA events, the host's enqueue time
+    of it and of the plain version, the plain version's time on the card
+    and the bound by bytes, for the keyframe and the mean inter frame;
   * decode fps (median of 3 timed runs after one warm-up) and each
     kernel's per-frame time from CUDA events (its launch alone on every
     decoded frame's inputs, and around the wrapper inside the decoder)
@@ -148,8 +153,8 @@ code != 0). It prints, in order:
     events, ns per dependent bool read, the bytes bound; then
     `python3 bench_torch.py` as a subprocess (BENCH_RUNS=3), its JSON line
     bit-exact, its fps beside the card's name and power limit;
-  * one JSON line {"kernels": [...]} (K1-K6) and, last, {"ok": true,
-    "device": ...}.
+  * one JSON line {"kernels": [...]} (K1-K6, inter_recon) and, last,
+    {"ok": true, "device": ...}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1738,6 +1743,174 @@ def entropy_phases(torch, np, card):
         "bench_torch_fps": line["value"]}
 
 
+def inter_recon_phases(torch, np, card, err):
+    """Stages 1-2 of the decoder (csrc/inter_recon.cu) on the card:
+    bench_1080p decoded through TorchDecoder with each frame's stage 1-2
+    inputs kept (MD5 of every frame, one launch per frame, CUDA events
+    around the wrapper inside the decoder, queued behind a sleep kernel);
+    then, on every frame's inputs,
+    the kernel against the plain `inter_planes` on the card (residuals and
+    inter MBs' pixels exact), the launch alone by CUDA events (median of
+    3, queued behind a sleep kernel, and from an idle card), the host's
+    time to enqueue the wrapper and the plain version, the
+    plain version's time on the card, and the bound by bytes. Returns
+    (its main-path launches, its `kernels` entry)."""
+    from libvpx_opencl_tpu_torch.models import torch_decoder as TD
+    from libvpx_opencl_tpu_torch.ops import wavefront as W
+    from libvpx_opencl_tpu_torch.utils.md5 import frame_md5, load_golden_md5s
+
+    t_start = time.perf_counter()
+    bench = os.path.join(VECTORS, "bench_1080p.ivf")
+    golden = load_golden_md5s(bench + ".md5")
+    kernel = TD.inter_recon_planes
+    kept, events = [], []
+
+    def clone(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: v.clone() for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(clone(t) for t in x)
+        return x.clone()
+
+    def probe(R, C, refs, mb, taps, split):
+        kept.append((R, C, clone(refs), clone(mb), taps, clone(split)))
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        # queued behind a ~10 ms sleep kernel: e1 is recorded only after
+        # the ctypes call has taken the interpreter lock back, which the
+        # entropy thread may hold for the 5 ms switch interval
+        torch.cuda._sleep(20_000_000)
+        e0.record()
+        out = kernel(R, C, refs, mb, taps, split)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    W.launches["inter_recon"] = 0
+    TD.inter_recon_planes = probe
+    try:
+        md5s = [frame_md5(*p) for p in TD.decode_ivf_torch(bench,
+                                                            device="cuda")]
+    finally:
+        TD.inter_recon_planes = kernel
+    count = W.launches["inter_recon"]
+    if md5s != golden:
+        fail("bench_1080p with the inter_recon probe: MD5 mismatch")
+    if count != len(kept) or count != len(golden):
+        fail(f"inter_recon: {count} launches for {len(kept)} frames; one "
+             "per frame is the design")
+    in_decoder = [a.elapsed_time(b) for a, b in events]
+
+    def same(R, C, mb, got, want):
+        (gp, gr), (wp, wr) = got, want
+        d = max(int((g - w).abs().max()) for g, w in zip(gr, wr))
+        idx = mb["inter_idx"]
+        r, c = idx // C, idx % C
+        for g, w, n in zip(gp, wp, (16, 8, 8)):
+            d = max(d, int((W.mb_view(g, R, C, n)[r, c].int() -
+                            W.mb_view(w, R, C, n)[r, c].int()).abs()
+                           .max()) if len(idx) else 0)
+        return d
+
+    alone, idle, host_k, host_p, plain, bounds, inter_mbs = (
+        [], [], [], [], [], [], [])
+    worst = 0
+    with torch.inference_mode():
+        # the plain version's torch ops warmed up on an inter frame's inputs
+        R, C, refs, mb, taps, split = kept[1]
+        TD.inter_planes(R, C, tuple(torch.stack(p) for p in refs), mb, taps,
+                        split)
+        for R, C, refs, mb, taps, split in kept:
+            stacked = None if refs is None else tuple(torch.stack(p)
+                                                      for p in refs)
+            # the launch queued behind a ~0.5 ms sleep kernel, so that its
+            # events hold the kernel and not the host's ~0.15 ms launch
+            # path; from an idle card for comparison
+            ts, ts_idle = [], []
+            for _ in range(3):
+                for queued in (True, False):
+                    torch.cuda.synchronize()
+                    e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+                    if queued:
+                        torch.cuda._sleep(1_000_000)
+                    t0 = time.perf_counter()
+                    e0.record()
+                    got = kernel(R, C, refs, mb, taps, split)
+                    e1.record()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    (ts if queued else ts_idle).append(
+                        (e0.elapsed_time(e1), (t1 - t0) * 1e3))
+            alone.append(statistics.median(t[0] for t in ts))
+            idle.append(statistics.median(t[0] for t in ts_idle))
+            host_k.append(statistics.median(t[1] for t in ts_idle))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = TD.inter_planes(R, C, stacked, mb, taps, split)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host_p.append((t1 - t0) * 1e3)
+            plain.append((time.perf_counter() - t0) * 1e3)
+            worst = max(worst, same(R, C, mb, got, want))
+            # bytes, each read once and each written once: the table's
+            # columns read (8 per MB, 5 more per inter MB), coefficients,
+            # the inter list, the SPLITMV lists, the reference windows
+            # (21x21 + 2x13x13 per MB, 24 9x9 tiles per SPLITMV MB), the
+            # int32 residuals and the inter MBs' pixels
+            N, K = R * C, mb["inter_idx"].shape[0]
+            S = 0 if split is None else split[0].shape[0]
+            byts = (N * (8 * 4 + 800 + 384 * 4) +
+                    K * (5 * 4 + 8 + 441 + 2 * 169 + 384) +
+                    S * (8 + 128 + 32 + 24 * 81 - 441 - 2 * 169))
+            bounds.append(byts / HBM_BYTES_PER_S * 1e3)
+            inter_mbs.append(K)
+    err["inter_recon"] = max(err.get("inter_recon", 0), worst)
+    if worst:
+        fail(f"inter_recon disagrees with inter_planes on a 1080p frame "
+             f"(max_abs_diff {worst})")
+    key = [i for i, k in enumerate(inter_mbs) if k == 0]
+    inter = [i for i, k in enumerate(inter_mbs) if k]
+
+    def mean(xs, sel):
+        return statistics.mean(xs[i] for i in sel) if sel else None
+
+    print(f"inter_recon on bench_1080p: {count} launches for {len(golden)} "
+          f"frames, MD5-exact; == inter_planes on every frame (max_abs_diff "
+          f"{worst}) [{card}]", flush=True)
+    for label, sel in (("keyframe", key), ("mean inter frame", inter)):
+        print(f"inter_recon {label} ({len(sel)} frames, inter MBs "
+              f"{mean(inter_mbs, sel):.0f}): alone {mean(alone, sel):.4f} "
+              f"ms queued, {mean(idle, sel):.4f} ms from an idle card, in "
+              f"the decoder {mean(in_decoder, sel):.4f} ms, bound "
+              f"{mean(bounds, sel):.4f} ms by bytes; host enqueue "
+              f"{mean(host_k, sel):.4f} ms; plain inter_planes on the card "
+              f"{mean(plain, sel):.4f} ms, of it host enqueue "
+              f"{mean(host_p, sel):.4f} ms [{card}]", flush=True)
+    print(f"inter_recon phases: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return {"inter_recon": count}, {
+        "name": "inter_recon", "route": "cuda",
+        "source": "libvpx_opencl_tpu_torch/csrc/inter_recon.cu",
+        "replaces": "none (libvpx_opencl_tpu/models/tpu_decoder.py XLA "
+                    "stages _residuals_*, _mc_dense_device, "
+                    "_mc_fixup_device)",
+        "launches": count, "max_abs_err": worst, "max_abs_diff": worst,
+        "ms": statistics.mean(alone), "plain_ms": statistics.mean(plain),
+        "bound_ms": statistics.mean(bounds), "bound_by": "bytes",
+        "library_ms": None, "card": card,
+        "key_ms": mean(alone, key), "inter_ms": mean(alone, inter),
+        "idle_card_key_ms": mean(idle, key),
+        "idle_card_inter_ms": mean(idle, inter),
+        "in_decoder_key_ms": mean(in_decoder, key),
+        "in_decoder_inter_ms": mean(in_decoder, inter),
+        "plain_key_ms": mean(plain, key), "plain_inter_ms": mean(plain, inter),
+        "host_enqueue_ms": statistics.mean(host_k),
+        "plain_host_enqueue_ms": statistics.mean(host_p),
+        "bound_key_ms": mean(bounds, key),
+        "bound_inter_ms": mean(bounds, inter)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1809,7 +1982,7 @@ def main():
     golden = load_golden_md5s(bench + ".md5")
     for name in W.launches:
         W.launches[name] = 0
-    per_frame = []                # (K1, K2 launches, filter level)
+    per_frame = []                # (K1, K2, inter_recon launches, level)
     src_frames = []               # decoded frames 0-9: the encoder's input
     n = 0
     dec = TD.TorchDecoder(device="cuda")
@@ -1819,6 +1992,7 @@ def main():
         per_frame.append((
             W.launches["intra_wavefront"] - before["intra_wavefront"],
             W.launches["lf_wavefront"] - before["lf_wavefront"],
+            W.launches["inter_recon"] - before["inter_recon"],
             dec.filter_level))
         if not show:
             continue
@@ -1831,12 +2005,13 @@ def main():
     if n != len(golden):
         fail(f"bench_1080p: {n} frames decoded, {len(golden)} expected")
     print(f"bench_1080p: {n}/{len(golden)} frames MD5-exact", flush=True)
-    print(f"launches per frame (K1, K2, filter level): {per_frame}",
-          flush=True)
-    for i, (k1, k2, level) in enumerate(per_frame):
-        if k1 != 1 or k2 != (1 if level else 0):
+    print(f"launches per frame (K1, K2, inter_recon, filter level): "
+          f"{per_frame}", flush=True)
+    for i, (k1, k2, k7, level) in enumerate(per_frame):
+        if k1 != 1 or k2 != (1 if level else 0) or k7 != 1:
             fail(f"bench_1080p frame {i} (filter level {level}) launched K1 "
-                 f"{k1} and K2 {k2} times; one launch each is the design")
+                 f"{k1}, K2 {k2} and inter_recon {k7} times; one launch "
+                 "each is the design")
 
     for name in EXTRA_STREAMS:
         path = os.path.join(VECTORS, f"{name}.ivf")
@@ -1846,6 +2021,11 @@ def main():
         if got != gold:
             fail(f"{name}: MD5 mismatch")
         print(f"{name}: {len(got)}/{len(gold)} frames MD5-exact", flush=True)
+
+    # -- stages 1-2: inter_recon against inter_planes, its times ---------
+    k7_launches, k7_entry = inter_recon_phases(torch, np, card, err)
+    for name, count in k7_launches.items():
+        launches[name] += count
 
     # -- decode throughput (bench.py's semantics: decode only) -----------
     frames = read_ivf(bench).frames
@@ -2658,6 +2838,7 @@ def main():
             "library_ms": lib_ms.get(key),
             "card": card})
     kernels.append(k4_entry)
+    kernels.append(k7_entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"card check to here", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,10 +5,12 @@ Port of libvpx_opencl_tpu/models/tpu_decoder.py:
     serial entropy layer, RefDecoder + the native C++ runtime) -> per-frame
     arrays (`_prep_arrays`);
   * device, per frame (`decode_frame_device`):
-      1. dequant + inverse WHT + IDCT for every block (torch ops);
-      2. sub-pel MC for every inter MB, SPLITMV per 4x4 (torch gathers);
-      3. inter reconstruction written into fresh bordered planes, then the
-         intra wavefront K1 and the loop-filter wavefront K2 in place
+      1. dequant + inverse WHT + IDCT for every block;
+      2. sub-pel MC for every inter MB, SPLITMV per 4x4, the inter
+         reconstruction written into fresh bordered planes: stages 1-2,
+         one launch of csrc/inter_recon.cu (`inter_recon_planes`; its
+         plain version `inter_planes` in torch ops);
+      3. the intra wavefront K1 and the loop-filter wavefront K2 in place
          (hand-written CUDA kernels, ops/wavefront.py);
       4. border extension (yv12extend.c);
   * the reference ring (last/golden/altref) stays on the device.
@@ -23,10 +25,12 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import ctypes
 
 import numpy as np
 import torch
 
+from ..ops import _cuda
 from ..ops import predict as P
 from ..ops import transforms as tf
 from ..ops import wavefront as W
@@ -153,13 +157,109 @@ def inter_planes(R, C, refs, mb, taps, split, row0=0, origin=None):
     return planes, resid
 
 
+def _check_inter_args(R, C, refs, mb, taps, split):
+    """Validate `inter_recon_planes`' CUDA arguments; raise ValueError on
+    anything the kernel does not take. Returns the reference planes as
+    [plane][last, golden, altref] (None without inter MBs)."""
+    tab, qcoeff, idx = mb["table"], mb["qcoeff"], mb["inter_idx"]
+    dev = tab.device
+    N, K = R * C, idx.shape[0]
+
+    def need(name, t, dtype, shape):
+        if t.device != dev or t.dtype != dtype or \
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+    need("table", tab, torch.int32, (N, MB_COLS))
+    need("qcoeff", qcoeff, torch.int16, (N, 25, 16))
+    if qcoeff.data_ptr() % 16:
+        raise ValueError("qcoeff must start on a 16-byte boundary")
+    need("inter_idx", idx, torch.int64, (K,))
+    need("taps", taps, torch.int32, (8, 6))
+    if split is not None:
+        S = split[0].shape[0]
+        for name, t, dtype, shape in zip(
+                ("pos", "y_mv", "uv_mv"), split,
+                (torch.int64, torch.int32, torch.int32),
+                ((S,), (S, 16, 2), (S, 4, 2))):
+            need(f"split {name}", t, dtype, shape)
+    if K == 0:
+        return None
+    if refs is None or len(refs) != 3:
+        raise ValueError("inter MBs need refs = (ref_y, ref_u, ref_v)")
+    planes = []
+    for p, shape in zip(refs, _plane_shapes(R, C)):
+        if len(p) != 3:
+            raise ValueError("each of refs holds the last, golden and "
+                             "altref planes")
+        for t in p:
+            need("reference plane", t, torch.uint8, shape)
+        planes.append(tuple(p))
+    return planes
+
+
+def inter_recon_planes(R, C, refs, mb, taps, split):
+    """Stages 1-2 of a frame, as `inter_planes(R, C, refs, mb, taps,
+    split)`: the residual blocks and fresh bordered planes that hold every
+    inter MB's reconstruction. refs = (ref_y, ref_u, ref_v), each the
+    last, golden and altref planes (a [3,H,W] stack or three [H,W]
+    planes; None without inter MBs). The SPLITMV rows `pos` increase, as
+    `_prep_arrays` makes them.
+
+    CUDA tensors: one launch of csrc/inter_recon.cu, counted in
+    launches["inter_recon"], or ValueError on what the kernel does not
+    take. CPU tensors: the plain version `inter_planes`."""
+    tab = mb["table"]
+    if tab.device.type == "cpu":
+        if refs is not None:
+            refs = tuple(p if torch.is_tensor(p) else torch.stack(tuple(p))
+                         for p in refs)
+        return inter_planes(R, C, refs, mb, taps, split)
+    ref_planes = _check_inter_args(R, C, refs, mb, taps, split)
+    dev = tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"stages 1-2 run on CUDA or CPU tensors, not {dev}")
+    N, K = R * C, mb["inter_idx"].shape[0]
+    ptrs = (ctypes.c_void_p * 9)(*(
+        [t.data_ptr() for p in ref_planes for t in p] if ref_planes
+        else [None] * 9))
+    if split is None:
+        split_args = (None, None, None, 0)
+    else:
+        split_args = (*(t.data_ptr() for t in split), split[0].shape[0])
+    fn = _cuda.load()["inter_recon"]
+    with torch.cuda.device(dev):
+        planes = W.alloc_planes(R, C, dev)
+        resid = tuple(torch.empty((N, n, n), dtype=torch.int32, device=dev)
+                      for n in (16, 8, 8))
+        y, u, v = planes
+        rc = fn(tab.data_ptr(), tab.stride(0), COL_REF, COL_HASY2,
+                COL_Y2BIG, COL_DQ, COL_MV, COL_UVMV, mb["qcoeff"].data_ptr(),
+                mb["inter_idx"].data_ptr(), K, *split_args,
+                taps.data_ptr(), ptrs, *(r.data_ptr() for r in resid),
+                y.data_ptr(), y.stride(0), u.data_ptr(), v.data_ptr(),
+                u.stride(0), R, C, torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(rc, "inter_recon")
+    _cuda.count_launch("inter_recon")
+    return planes, resid
+
+
 def decode_frame_device(R, C, simple_lf, do_lf, refs, mb, taps, split):
     """One frame on the device. `mb` holds the uploaded per-frame tensors
-    (table [N,MB_COLS] int32, qcoeff [N,25,16] int16, inter_idx [K]);
-    refs = (ref_y, ref_u, ref_v) [3,H,W] uint8 stacks (None on keyframes).
-    Returns fresh bordered (y, u, v) uint8 planes."""
+    (table [N,MB_COLS] int32, qcoeff [N,25,16] int16, inter_idx [K]
+    int64); refs = (ref_y, ref_u, ref_v), each the last, golden and
+    altref planes (a [3,H,W] uint8 stack or three [H,W] planes; None on
+    keyframes). Returns fresh bordered (y, u, v) uint8 planes."""
     tab = mb["table"]
-    (y, u, v), resid = inter_planes(R, C, refs, mb, taps, split)
+    with trace.span("dec.inter") as sp:
+        (y, u, v), resid = inter_recon_planes(R, C, refs, mb, taps, split)
+        if sp:
+            sp.attrs.update(
+                kernel=int(tab.device.type == "cuda"),
+                inter_mbs=int(mb["inter_idx"].shape[0]),
+                split_mbs=0 if split is None else int(split[0].shape[0]))
     W.intra_recon_planes(R, C, y, u, v, *resid,
                          tab[:, COL_INTRA:COL_INTRA + W.INTRA_COLS])
     if do_lf:
@@ -458,8 +558,8 @@ class TorchDecoder(RefDecoder):
             with trace.span("dec.enqueue"):
                 refs = None
                 if len(inter_idx):
-                    refs = tuple(torch.stack([getattr(f, p) for f in (
-                        self.last, self.golden, self.altref)])
+                    refs = tuple(tuple(getattr(f, p) for f in (
+                        self.last, self.golden, self.altref))
                         for p in ("y", "u", "v"))
                 cy, cu, cv = decode_frame_device(R, C, simple_lf, do_lf,
                                                  refs, mb, tdev, split)

@@ -44,6 +44,10 @@ KERNELS = {
                          [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
                           _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP]),
     "trellis": ("trellis.cu", "trellis", [_VP] * 13 + [_I, _VP, _VP, _VP]),
+    "inter_recon": ("inter_recon.cu", "inter_recon",
+                    [_VP] + [_I] * 7 + [_VP, _VP, _I, _VP, _VP, _VP, _I,
+                                        _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                                        _VP, _VP, _I, _I, _I, _VP]),
 }
 
 #: kernel launches made by the wrappers, per kernel; a wrapper adds to its
