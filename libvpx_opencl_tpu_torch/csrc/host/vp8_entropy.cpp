@@ -560,56 +560,4 @@ int vp8e_detokenize(
   return 0;
 }
 
-// Coefficient upload packing (the host half of the framework's compacted
-// nibble transfer, see tpu_decoder._prep_arrays): scan the dense qcoeff
-// [nblocks, 16] i16 array, nibble-pack levels (+8 bias, 4 bits per coeff)
-// and record every out-of-range level as an (idx, value) escape.
-//
-// Only non-zero blocks are packed, in block order.  The block->row mapping
-// crosses the wire as a BITMAP (bit b set when block b is non-zero,
-// little-endian within bytes, capacity ceil(nblocks/8) bytes, zeroed here):
-// the device rebuilds row indices with a cumulative sum, so the per-block
-// cost on the wire is 1 bit + 8 bytes per non-zero block.  Escape indices
-// address the compacted row space (row * 16 + coeff), matching the device
-// scatter in tpu_decoder._unpack_nibbles.
-//
-// out_counts = {K, E}.  Caller guarantees nib has capacity nblocks rows and
-// esc_* have capacity esc_cap; overflow aborts with return 1 (cannot happen
-// with esc_cap = 16*nblocks).
-int vp8e_pack_coeffs(const int16_t* qcoeff, int64_t nblocks,
-                     uint8_t* bitmap, uint8_t* nib,
-                     int32_t* esc_idx, int16_t* esc_val, int64_t esc_cap,
-                     int64_t* out_counts) {
-  std::memset(bitmap, 0, (size_t)((nblocks + 7) / 8));
-  int64_t row = 0, E = 0;
-  for (int64_t b = 0; b < nblocks; b++) {
-    const uint64_t* w = reinterpret_cast<const uint64_t*>(qcoeff + b * 16);
-    if (!(w[0] | w[1] | w[2] | w[3])) continue;
-    bitmap[b >> 3] |= (uint8_t)(1u << (b & 7));
-    const int16_t* q = qcoeff + b * 16;
-    uint8_t* out = nib + row * 8;
-    for (int i = 0; i < 8; i++) {
-      int lo = q[2 * i], hi = q[2 * i + 1];
-      int nlo = lo + 8, nhi = hi + 8;
-      if ((unsigned)nlo > 15u) {
-        if (E >= esc_cap) return 1;
-        esc_idx[E] = (int32_t)(row * 16 + 2 * i);
-        esc_val[E++] = (int16_t)lo;
-        nlo = lo < -8 ? 0 : 15;
-      }
-      if ((unsigned)nhi > 15u) {
-        if (E >= esc_cap) return 1;
-        esc_idx[E] = (int32_t)(row * 16 + 2 * i + 1);
-        esc_val[E++] = (int16_t)hi;
-        nhi = hi < -8 ? 0 : 15;
-      }
-      out[i] = (uint8_t)(nlo | (nhi << 4));
-    }
-    row++;
-  }
-  out_counts[0] = row;
-  out_counts[1] = E;
-  return 0;
-}
-
 }  // extern "C"

@@ -26,6 +26,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -359,6 +360,24 @@ class FrameFuture:
         return self._f().visible()
 
 
+class FrameMeta(NamedTuple):
+    """One frame's header values that the entropy thread hands the
+    dispatch worker with its arrays (`_reconstruct`)."""
+    R: int
+    C: int
+    simple_lf: bool
+    do_lf: bool
+    frame_type: int
+    copy_to_arf: int
+    copy_to_gf: int
+    refresh_golden: int
+    refresh_alt: int
+    refresh_last: int
+    use_bilinear: bool
+    w: int
+    h: int
+
+
 class TorchDecoder(RefDecoder):
     """VP8 decoder with the pixel pipeline in PyTorch + CUDA kernels.
 
@@ -460,14 +479,14 @@ class TorchDecoder(RefDecoder):
             self._detokenize_all()
         with trace.span("dec.prep"):
             np_args = self._prep_arrays()
-        meta = (self.mb_rows, self.mb_cols, bool(self.simple_filter),
-                self.filter_level > 0, self.frame_type,
-                getattr(self, "copy_to_arf", 0),
-                getattr(self, "copy_to_gf", 0),
-                getattr(self, "refresh_golden", 0),
-                getattr(self, "refresh_alt", 0),
-                getattr(self, "refresh_last", 1),
-                bool(self.use_bilinear), self.w, self.h)
+        meta = FrameMeta(self.mb_rows, self.mb_cols, bool(self.simple_filter),
+                         self.filter_level > 0, self.frame_type,
+                         getattr(self, "copy_to_arf", 0),
+                         getattr(self, "copy_to_gf", 0),
+                         getattr(self, "refresh_golden", 0),
+                         getattr(self, "refresh_alt", 0),
+                         getattr(self, "refresh_last", 1),
+                         bool(self.use_bilinear), self.w, self.h)
         with trace.span("dec.submit"):
             self._pending = self._dispatch_pool.submit(
                 self._dispatch, np_args, meta, trace.handoff())
@@ -511,32 +530,30 @@ class TorchDecoder(RefDecoder):
         """Dispatch-worker thread: upload, run the device work, build the
         frame, apply the reference-ring swap (handles only)."""
         cur = self._frame_device(np_args, meta)
-        (frame_type, copy_to_arf, copy_to_gf, refresh_golden, refresh_alt,
-         refresh_last) = meta[4:10]
-        if frame_type == 0:
+        if meta.frame_type == 0:
             self.golden = self.altref = self.last = cur
         else:
-            if copy_to_arf == 1:
+            if meta.copy_to_arf == 1:
                 self.altref = self.last
-            elif copy_to_arf == 2:
+            elif meta.copy_to_arf == 2:
                 self.altref = self.golden
-            if copy_to_gf == 1:
+            if meta.copy_to_gf == 1:
                 self.golden = self.last
-            elif copy_to_gf == 2:
+            elif meta.copy_to_gf == 2:
                 self.golden = self.altref
-            if refresh_golden:
+            if meta.refresh_golden:
                 self.golden = cur
-            if refresh_alt:
+            if meta.refresh_alt:
                 self.altref = cur
-            if refresh_last:
+            if meta.refresh_last:
                 self.last = cur
         return cur
 
     def _frame_device(self, np_args, meta):
         """Upload one frame's arrays and enqueue its device work; returns
         the DeviceFrame."""
-        R, C, simple_lf, do_lf = meta[:4]
-        use_bilinear, w, h = meta[10:]
+        R, C, simple_lf, do_lf = meta.R, meta.C, meta.simple_lf, meta.do_lf
+        use_bilinear, w, h = meta.use_bilinear, meta.w, meta.h
         table, qcoeff, inter_idx, taps, split = np_args
         dev = self.device
         with self._on_stream(), torch.inference_mode():

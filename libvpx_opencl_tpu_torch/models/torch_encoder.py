@@ -36,6 +36,8 @@ tests do); there is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field, fields, replace
+
 import numpy as np
 import torch
 
@@ -64,6 +66,94 @@ def _tcb_tables(device):
     1 Y2, 2 UV, 3 Y-without-Y2 (B_PRED)."""
     tc = _default_token_costs()
     return tuple(RD.banded_token_costs(tc, t).to(device) for t in range(4))
+
+
+#: metadata of a field whose first dimension runs over the frame's MBs in
+#: raster order: a row shard's view (`FrameInputs.rows`) takes its MBs of it
+_PER_MB = {"per_mb": True}
+
+
+@dataclass(frozen=True)
+class EncoderTables:
+    """The device tables that depend only on the device and the frame
+    geometry, made once per encoder. int32 unless said."""
+    taps: torch.Tensor             # sixtap filter taps [8, 6]
+    tcb0: torch.Tensor             # banded token costs (_tcb_tables):
+    tcb1: torch.Tensor             # Y-with-Y2, Y2, UV, Y-without-Y2
+    tcb2: torch.Tensor             # (B_PRED), each [16, 3, 12]
+    tcb3: torch.Tensor
+    bmode_cost: torch.Tensor       # inter-frame B_PRED sub-mode costs [10]
+    kf_ymode_cost: torch.Tensor    # keyframe {DC,V,H,TM} costs [4]
+    kf_uvmode_cost: torch.Tensor   # [4]
+    ymode_cost: torch.Tensor       # inter-frame {DC,V,H,TM,B_PRED} [5]
+    uvmode_cost: torch.Tensor      # [4]
+    mvcost: torch.Tensor           # MV component rate tables [2, 1024]
+    modectx: torch.Tensor          # MODE_CONTEXTS [6, 4]
+    c0tab: torch.Tensor            # bit costs of a 0 / a 1 by
+    c1tab: torch.Tensor            # probability [256]
+    mb_r: torch.Tensor = field(metadata=_PER_MB)    # each MB's frame row
+    mb_c: torch.Tensor = field(metadata=_PER_MB)    # and column [N], int64
+    mb_pos: torch.Tensor = field(metadata=_PER_MB)  # padded luma [N, 2]
+    mv_lo: torch.Tensor = field(metadata=_PER_MB)   # eighth-pel MV bounds
+    mv_hi: torch.Tensor = field(metadata=_PER_MB)   # [N, 2]
+
+
+@dataclass(frozen=True, kw_only=True)
+class FrameInputs:
+    """One frame's inputs to TorchEncoder's device hooks, on one device.
+    The fields with `_PER_MB` metadata are the per-MB ones ([N, ...],
+    N = R * C); `rows` gives a row shard's view."""
+    tables: EncoderTables
+    C: int
+    src_y_pl: torch.Tensor         # bordered source planes, uint8
+    src_u_pl: torch.Tensor
+    src_v_pl: torch.Tensor
+    refs_y: torch.Tensor           # reference stacks [nr, H, W], uint8
+    refs_u: torch.Tensor
+    refs_v: torch.Tensor
+    rdmult: torch.Tensor           # RD constants, float32 scalars
+    rddiv: torch.Tensor
+    sf: SpeedFeatures
+    yb: torch.Tensor = field(metadata=_PER_MB)    # source blocks, int32
+    ub: torch.Tensor = field(metadata=_PER_MB)
+    vb: torch.Tensor = field(metadata=_PER_MB)
+    dq1: torch.Tensor = field(metadata=_PER_MB)   # dequant factors [N, 2]
+    dq2: torch.Tensor = field(metadata=_PER_MB)   # (Y, Y2, UV)
+    dqu: torch.Tensor = field(metadata=_PER_MB)
+    qidx: torch.Tensor = field(metadata=_PER_MB)  # quantizer index [N]
+    # inter frames: the search centres (full-pel) and MV predictor
+    # (eighth-pel), SAD per bit, the header costs of intra and of each
+    # reference
+    centers: torch.Tensor = field(default=None, metadata=_PER_MB)  # [N, 2]
+    prev8: torch.Tensor = field(default=None, metadata=_PER_MB)    # [N, 2]
+    sadpb: int = 0
+    ci0: int = 0
+    ci1: torch.Tensor = None                                       # [nr]
+    # the decision, for the encode hook (intra: its host mask)
+    mv8: torch.Tensor = field(default=None, metadata=_PER_MB)
+    refk: torch.Tensor = field(default=None, metadata=_PER_MB)
+    ymode: torch.Tensor = field(default=None, metadata=_PER_MB)
+    uvmode: torch.Tensor = field(default=None, metadata=_PER_MB)
+    intra: np.ndarray = field(default=None, metadata=_PER_MB)
+
+    @property
+    def R(self):
+        return self.yb.shape[0] // self.C
+
+    def rows(self, r0, r1, device):
+        """The view of MB rows r0..r1 on `device`: the per-MB fields, the
+        tables' too, cut to them, every other tensor moved."""
+        def view(obj):
+            return replace(obj, **{f.name: cut(f, getattr(obj, f.name))
+                                   for f in fields(obj)})
+
+        def cut(f, v):
+            if isinstance(v, EncoderTables):
+                return view(v)
+            if f.metadata.get("per_mb") and v is not None:
+                v = v[r0 * self.C:r1 * self.C]
+            return v.to(device) if isinstance(v, torch.Tensor) else v
+        return view(self)
 
 
 def _chroma_mv(mv):
@@ -170,13 +260,7 @@ def _bpred_rd(R, C, src_y_pl, yb, dq1, qidx, tcb3, bmode_cost, rdmult,
         dist_best.reshape(N, 16).sum(-1).to(torch.float32)
 
 
-def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
-                     refs_y, refs_u, refs_v, src_y_pl, src_u_pl, src_v_pl,
-                     yb, ub, vb, centers, taps, lo_r, hi_r, lo_c, hi_c,
-                     mvcost, prev8, sadpb, tcb0, tcb1, tcb2, tcb3,
-                     dq1, dq2, dqu, qidx, rdmult, rddiv, ymode_cost,
-                     uvmode_cost, bmode_cost, ci0, ci1, modectx, c0tab,
-                     c1tab):
+def _decide_rd_inter(fi):
     """Program A (RD form): per-reference motion search + token-cost RD
     mode decision over {DC,V,H,TM} intra and
     {ZEROMV, NEARESTMV, NEARMV, NEWMV} x {LAST, GOLDEN, ALTREF}: the
@@ -185,73 +269,49 @@ def _decide_rd_inter(R, C, n_refs, me_step, use_bpred,
     mode-signaling costs come from a device near-MV lattice built over the
     LAST search field. Intra predictions come from source neighbours
     (decision approximation; the encode wavefront reconstructs from true
-    neighbours). With use_bpred the B_PRED candidate (`_bpred_rd`, fixed
-    inter-frame sub-mode costs bmode_cost) joins them.
-
-    refs_y [nr,H,W], refs_u/refs_v [nr,Hc,Wc]; ci1 [nr] per-ref header
-    cost; ymode_cost [5]; modectx [6,4] MODE_CONTEXTS; c0tab/c1tab [256]
-    bit-cost tables.
+    neighbours). With sf.bpred the B_PRED candidate (`_bpred_rd`, fixed
+    inter-frame sub-mode costs) joins them.
     Returns (mv [N,2], ref_k [N] -1=intra else 0..nr-1, ymode, uvmode)."""
-    mvs = _search_refs(R, C, n_refs, me_step, refs_y, yb, centers, taps,
-                       lo_r, hi_r, lo_c, hi_c, mvcost, prev8, sadpb)
-    return _rd_inter(R, C, n_refs, use_bpred, mvs,
-                     ME.near_mv_lattice(mvs[0], R, C), refs_y, refs_u,
-                     refs_v, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb, taps,
-                     mvcost, tcb0, tcb1, tcb2, tcb3, dq1, dq2, dqu, qidx,
-                     rdmult, rddiv, ymode_cost, uvmode_cost, bmode_cost, ci0,
-                     ci1, modectx, c0tab, c1tab)
+    mvs = _search_refs(fi)
+    return _rd_inter(fi, mvs, ME.near_mv_lattice(mvs[0], fi.R, fi.C))
 
 
-def _mb_pos(R, C, device, row_off=0):
-    """[N,2] int32 padded luma plane coordinates of the R x C MBs from
-    frame row row_off on."""
-    mb = torch.arange(R * C, device=device)
-    return torch.stack([B + (mb // C + row_off) * 16, B + (mb % C) * 16],
-                       1).to(torch.int32)
-
-
-def _search_refs(R, C, n_refs, me_step, refs_y, yb, centers, taps, lo_r,
-                 hi_r, lo_c, hi_c, mvcost, prev8, sadpb, row_off=0):
-    """Per-reference full-pel search + sub-pel refine of the R x C MBs
-    from frame row row_off on: a list of [N,2] eighth-pel MVs, one per
-    reference."""
-    mb_pos = _mb_pos(R, C, yb.device, row_off)
-    pen = (mvcost, prev8, sadpb)
-    bounds = (lo_r, hi_r, lo_c, hi_c)
+def _search_refs(fi):
+    """Per-reference full-pel search + sub-pel refine of fi's MBs: a list
+    of [N,2] eighth-pel MVs, one per reference."""
+    t = fi.tables
+    pen = (t.mvcost, fi.prev8, fi.sadpb)
+    bounds = (t.mv_lo[:, 0], t.mv_hi[:, 0], t.mv_lo[:, 1], t.mv_hi[:, 1])
     mvs = []
-    for k in range(n_refs):
-        mv_fp, sad_fp = ME.full_search(refs_y[k], yb, centers, mb_pos,
-                                       mv_pen=pen, step=me_step)
-        mv8k, _ = ME.subpel_refine(refs_y[k], yb, mb_pos, mv_fp, sad_fp,
-                                   taps, bounds, mv_pen=pen)
+    for ref in fi.refs_y:
+        mv_fp, sad_fp = ME.full_search(ref, fi.yb, fi.centers, t.mb_pos,
+                                       mv_pen=pen,
+                                       step=1 if fi.sf.exhaustive_me else 2)
+        mv8k, _ = ME.subpel_refine(ref, fi.yb, t.mb_pos, mv_fp, sad_fp,
+                                   t.taps, bounds, mv_pen=pen)
         mvs.append(mv8k)
     return mvs
 
 
-def _rd_inter(R, C, n_refs, use_bpred, mvs, lattice, refs_y, refs_u, refs_v,
-              src_y_pl, src_u_pl, src_v_pl, yb, ub, vb, taps, mvcost, tcb0,
-              tcb1, tcb2, tcb3, dq1, dq2, dqu, qidx, rdmult, rddiv,
-              ymode_cost, uvmode_cost, bmode_cost, ci0, ci1, modectx, c0tab,
-              c1tab, row_off=0):
-    """The RD half of `_decide_rd_inter` over the R x C MBs from frame row
+def _rd_inter(fi, mvs, lattice, row_off=0):
+    """The RD half of `_decide_rd_inter` over fi's MBs, from frame row
     row_off on, given the searched MVs and the near-MV lattice over them
-    (ME.near_mv_lattice's 4-tuple). B_PRED (use_bpred) only for a whole
+    (ME.near_mv_lattice's 4-tuple). B_PRED (sf.bpred) only for a whole
     frame (row_off 0)."""
+    R, C, t = fi.R, fi.C, fi.tables
+    n_refs = fi.refs_y.shape[0]
     N = R * C
-    dev = yb.device
-    mb = torch.arange(N, device=dev)
-    mb_r, mb_c = mb // C + row_off, mb % C
-    mb_pos = _mb_pos(R, C, dev, row_off)
+    dev = fi.yb.device
     nearest, near, best_mv, cnt = lattice
     cnt = cnt.long()
-    p0, p1, p2, p3 = (modectx[cnt[:, i], i].long() for i in range(4))
-    czero = c0tab[p0]
-    cnearest = c1tab[p0] + c0tab[p1]
-    cnear = cnearest - c0tab[p1] + c1tab[p1] + c0tab[p2]
-    cnew = cnear - c0tab[p2] + c1tab[p2] + c0tab[p3]
+    p0, p1, p2, p3 = (t.modectx[cnt[:, i], i].long() for i in range(4))
+    czero = t.c0tab[p0]
+    cnearest = t.c1tab[p0] + t.c0tab[p1]
+    cnear = cnearest - t.c0tab[p1] + t.c1tab[p1] + t.c0tab[p2]
+    cnew = cnear - t.c0tab[p2] + t.c1tab[p2] + t.c0tab[p3]
 
     # Y candidates: 4 intra + (zero, nearest, near, new) per reference
-    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16, row_off) \
+    ipreds = ME.intra_mode_preds(fi.src_y_pl, t.mb_pos, R, C, 16, row_off) \
         .transpose(0, 1)                                  # [4,N,16,16]
     zero2 = torch.zeros(N, 2, dtype=torch.int32, device=dev)
     cand_mvs = []
@@ -261,56 +321,57 @@ def _rd_inter(R, C, n_refs, use_bpred, mvs, lattice, refs_y, refs_u, refs_v,
     allmv = torch.stack(cand_mvs, 0)                      # [Kin, N, 2]
     flat_mv = allmv.reshape(Kin * N, 2)
     flat_ref = torch.arange(n_refs, device=dev).repeat_interleave(4 * N)
-    pos_t = mb_pos.repeat(Kin, 1)
+    pos_t = t.mb_pos.repeat(Kin, 1)
     starts = torch.stack([pos_t[:, 0] + (flat_mv[:, 0] >> 3),
                           pos_t[:, 1] + (flat_mv[:, 1] >> 3)], 1)
-    pred_in = P.mc_predict_blocks(refs_y, flat_ref, starts,
+    pred_in = P.mc_predict_blocks(fi.refs_y, flat_ref, starts,
                                   flat_mv[:, 1] & 7, flat_mv[:, 0] & 7,
-                                  taps, 16).reshape(Kin, N, 16, 16)
+                                  t.taps, 16).reshape(Kin, N, 16, 16)
     preds = torch.cat([ipreds, pred_in], 0)
     K = 4 + Kin
-    ry, dy, _ = RD.rd_y16(yb[None] - preds, dq1[None].expand(K, N, 2),
-                          dq2[None].expand(K, N, 2),
-                          qidx[None].expand(K, N), tcb0, tcb1)
+    ry, dy, _ = RD.rd_y16(fi.yb[None] - preds,
+                          fi.dq1[None].expand(K, N, 2),
+                          fi.dq2[None].expand(K, N, 2),
+                          fi.qidx[None].expand(K, N), t.tcb0, t.tcb1)
 
     # UV: best intra mode (shared by intra candidates) + per-candidate MC
-    uvbest, ruv_i, duv_i = _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb,
-                                        dqu, qidx, tcb2, uvmode_cost,
-                                        rdmult, rddiv, row_off)
-    pu, pv = _mc_uv(refs_u, refs_v, flat_ref, mb_r.repeat(Kin),
-                    mb_c.repeat(Kin), flat_mv, taps)
-    ruv_in, duv_in = RD.rd_uv(ub[None] - pu.reshape(Kin, N, 8, 8),
-                              vb[None] - pv.reshape(Kin, N, 8, 8),
-                              dqu[None].expand(Kin, N, 2),
-                              qidx[None].expand(Kin, N), tcb2)
+    uvbest, ruv_i, duv_i = _uv_intra_rd(
+        R, C, fi.src_u_pl, fi.src_v_pl, fi.ub, fi.vb, fi.dqu, fi.qidx,
+        t.tcb2, t.uvmode_cost, fi.rdmult, fi.rddiv, row_off)
+    pu, pv = _mc_uv(fi.refs_u, fi.refs_v, flat_ref, t.mb_r.repeat(Kin),
+                    t.mb_c.repeat(Kin), flat_mv, t.taps)
+    ruv_in, duv_in = RD.rd_uv(fi.ub[None] - pu.reshape(Kin, N, 8, 8),
+                              fi.vb[None] - pv.reshape(Kin, N, 8, 8),
+                              fi.dqu[None].expand(Kin, N, 2),
+                              fi.qidx[None].expand(Kin, N), t.tcb2)
 
     # NEWMV signaling cost per reference (vp8_mv_bit_cost vs the lattice
     # best_ref_mv, weight 96)
     def mv_rate(mv8):
         dr = ((mv8[:, 0] - best_mv[:, 0]).abs() >> 1).clamp(0, 1023).long()
         dc_ = ((mv8[:, 1] - best_mv[:, 1]).abs() >> 1).clamp(0, 1023).long()
-        return ((mvcost[0][dr] + mvcost[1][dc_]) * 96) >> 7
+        return ((t.mvcost[0][dr] + t.mvcost[1][dc_]) * 96) >> 7
 
     mode_costs = [czero, cnearest, cnear, cnew]
-    rate_rows = [ci0 + ymode_cost[m] + ry[m] + ruv_i for m in range(4)]
+    rate_rows = [fi.ci0 + t.ymode_cost[m] + ry[m] + ruv_i for m in range(4)]
     dist_rows = [dy[m] / 4.0 + duv_i / 4.0 for m in range(4)]
     for k in range(n_refs):
         for j in range(4):
             i = 4 * k + j
             extra = mv_rate(mvs[k]) if j == 3 else 0
-            rate_rows.append(ci1[k] + mode_costs[j] + extra +
+            rate_rows.append(fi.ci1[k] + mode_costs[j] + extra +
                              ry[4 + i] + ruv_in[i])
             dist_rows.append(dy[4 + i] / 4.0 + duv_in[i] / 4.0)
-    if use_bpred:
+    if fi.sf.bpred:
         if row_off:
             raise ValueError("the B_PRED candidate is costed over whole "
                              "frames only")
-        br, bd = _bpred_rd(R, C, src_y_pl, yb, dq1, qidx, tcb3, bmode_cost,
-                           rdmult, rddiv)
-        rate_rows.append(ci0 + ymode_cost[4] + br + ruv_i)
+        br, bd = _bpred_rd(R, C, fi.src_y_pl, fi.yb, fi.dq1, fi.qidx,
+                           t.tcb3, t.bmode_cost, fi.rdmult, fi.rddiv)
+        rate_rows.append(fi.ci0 + t.ymode_cost[4] + br + ruv_i)
         dist_rows.append(bd / 4.0 + duv_i / 4.0)
     rdall = RD.rdc(torch.stack(rate_rows, 0), torch.stack(dist_rows, 0),
-                   rdmult, rddiv)
+                   fi.rdmult, fi.rddiv)
     best = torch.argmin(rdall, dim=0)
     is_bpred = best == 4 + Kin        # never true without the B_PRED row
     ymode = torch.where(is_bpred, 4, torch.argmin(rdall[:4], dim=0)) \
@@ -323,24 +384,23 @@ def _rd_inter(R, C, n_refs, use_bpred, mvs, lattice, refs_y, refs_u, refs_v,
     return mv_out, ref_k, ymode, uvbest
 
 
-def _decide_rd_key(R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                   tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdmult, rddiv,
-                   ymode_cost, uvmode_cost, row_off=0):
+def _decide_rd_key(fi, row_off=0):
     """Keyframe RD decision over {DC,V,H,TM} (vp8_rd_pick_intra_mode
-    role, rdopt.c:2374) of the R x C MBs from frame row row_off on."""
+    role, rdopt.c:2374) of fi's MBs, from frame row row_off on."""
+    R, C, t = fi.R, fi.C, fi.tables
     N = R * C
-    mb_pos = _mb_pos(R, C, yb.device, row_off)
-    ipreds = ME.intra_mode_preds(src_y_pl, mb_pos, R, C, 16, row_off) \
+    ipreds = ME.intra_mode_preds(fi.src_y_pl, t.mb_pos, R, C, 16, row_off) \
         .transpose(0, 1)
-    ry, dy, _ = RD.rd_y16(yb[None] - ipreds, dq1[None].expand(4, N, 2),
-                          dq2[None].expand(4, N, 2),
-                          qidx[None].expand(4, N), tcb0, tcb1)
-    uvbest, ruv_i, duv_i = _uv_intra_rd(R, C, src_u_pl, src_v_pl, ub, vb,
-                                        dqu, qidx, tcb2, uvmode_cost,
-                                        rdmult, rddiv, row_off)
-    rate = ymode_cost[:, None] + ry + ruv_i[None]
+    ry, dy, _ = RD.rd_y16(fi.yb[None] - ipreds,
+                          fi.dq1[None].expand(4, N, 2),
+                          fi.dq2[None].expand(4, N, 2),
+                          fi.qidx[None].expand(4, N), t.tcb0, t.tcb1)
+    uvbest, ruv_i, duv_i = _uv_intra_rd(
+        R, C, fi.src_u_pl, fi.src_v_pl, fi.ub, fi.vb, fi.dqu, fi.qidx,
+        t.tcb2, t.kf_uvmode_cost, fi.rdmult, fi.rddiv, row_off)
+    rate = t.kf_ymode_cost[:, None] + ry + ruv_i[None]
     dist = dy / 4.0 + duv_i[None] / 4.0
-    rdall = RD.rdc(rate, dist, rdmult, rddiv)
+    rdall = RD.rdc(rate, dist, fi.rdmult, fi.rddiv)
     return torch.argmin(rdall, dim=0).to(torch.int32), uvbest
 
 
@@ -355,51 +415,43 @@ def _trellis_mbs(coefs, q0, e0, dq_y1, dq_y2, dq_uv, tcb0, tcb1, tcb2,
                           tcb2, rdmult, rddiv)
 
 
-def _encode_device(R, C, use_trellis, refs_y, refs_u, refs_v, refk,
-                   src_y_blocks, src_u_blocks, src_v_blocks,
-                   mode, uv_mode, intra, mv8, taps, dq_y1, dq_y2, dq_uv,
-                   qidx, tcb0, tcb1, tcb2, bmode_cost, rdmult, rddiv,
-                   row_off=0, top=None):
-    """Program B: MC predictions (per-MB reference selection), the trellis
-    on the inter MBs (use_trellis: SpeedFeatures.trellis), then the encode
-    wavefront (one K5 launch on the card), whose B_PRED MBs read
-    bmode_cost (the caller passes None on frames without a B_PRED MB). The JAX function
-    runs the trellis on every MB and keeps it for the inter ones; each
-    block's result depends only on its own MB, so running it on the inter
-    MBs alone gives the same levels. A row shard passes row_off (the frame
-    row of its row 0) and `top` (wf.encode_recon_planes': the
-    reconstructed pixel rows above it). Returns (qcoeff int16 [N,25,16],
-    eobs [N,25], uv_mode, y, u, v, bmodes): the reconstruction as fresh
-    zero-bordered uint8 planes, not yet loop-filtered."""
-    N = R * C
-    dev = src_y_blocks.device
-    mb = torch.arange(N, device=dev)
-    mb_r, mb_c = mb // C + row_off, mb % C
-    rk = refk.clamp(0, refs_y.shape[0] - 1)
-    starts = torch.stack([B + mb_r * 16 + (mv8[:, 0] >> 3),
-                          B + mb_c * 16 + (mv8[:, 1] >> 3)], 1)
-    pred_y = P.mc_predict_blocks(refs_y, rk, starts, mv8[:, 1] & 7,
-                                 mv8[:, 0] & 7, taps, 16)
-    pred_u, pred_v = _mc_uv(refs_u, refs_v, rk, mb_r, mb_c, mv8, taps)
+def _encode_device(fi, has_bpred, top=None):
+    """Program B: MC predictions for fi's decision (per-MB reference
+    selection), the trellis on the inter MBs (sf.trellis), then the encode
+    wavefront (one K5 launch on the card), whose B_PRED MBs read the
+    sub-mode costs (has_bpred: the frame has a B_PRED MB). The JAX
+    function runs the trellis on every MB and keeps it for the inter ones;
+    each block's result depends only on its own MB, so running it on the
+    inter MBs alone gives the same levels. A row shard below the first
+    passes `top` (wf.encode_recon_planes': the reconstructed pixel rows
+    above it). Returns (qcoeff int16 [N,25,16], eobs [N,25], uv_mode, y,
+    u, v, bmodes): the reconstruction as fresh zero-bordered uint8 planes,
+    not yet loop-filtered."""
+    t, mv8 = fi.tables, fi.mv8
+    rk = fi.refk.clamp(0, fi.refs_y.shape[0] - 1)
+    starts = torch.stack([B + t.mb_r * 16 + (mv8[:, 0] >> 3),
+                          B + t.mb_c * 16 + (mv8[:, 1] >> 3)], 1)
+    pred_y = P.mc_predict_blocks(fi.refs_y, rk, starts, mv8[:, 1] & 7,
+                                 mv8[:, 0] & 7, t.taps, 16)
+    pred_u, pred_v = _mc_uv(fi.refs_u, fi.refs_v, rk, t.mb_r, t.mb_c, mv8,
+                            t.taps)
+    intra = fi.refk < 0
     # chroma intra mode: RD-chosen by the decision program for intra MBs
-    uv_mode = torch.where(intra, uv_mode, DC_PRED)
+    uv_mode = torch.where(intra, fi.uvmode, DC_PRED)
     ext = None
-    if use_trellis:
-        # the wavefront's inter batch, in MB order (one small host copy)
-        with trace.host_wait():
-            intra_np = intra.cpu().numpy()
-        idx = torch.from_numpy(np.flatnonzero(~intra_np)).to(dev)
-        if idx.shape[0]:
-            dqs = (dq_y1[idx], dq_y2[idx], dq_uv[idx])
-            coefs, q0, e0 = wf.transform_quant(
-                src_y_blocks[idx], src_u_blocks[idx], src_v_blocks[idx],
-                pred_y[idx], pred_u[idx], pred_v[idx], *dqs, qidx[idx])
-            ext = _trellis_mbs(coefs, q0, e0, *dqs, tcb0, tcb1, tcb2, rdmult,
-                               rddiv)
+    inter_mbs = np.flatnonzero(~fi.intra)   # the trellis' batch, MB order
+    if fi.sf.trellis and len(inter_mbs):
+        idx = torch.from_numpy(inter_mbs).to(fi.yb.device)
+        dqs = (fi.dq1[idx], fi.dq2[idx], fi.dqu[idx])
+        coefs, q0, e0 = wf.transform_quant(
+            fi.yb[idx], fi.ub[idx], fi.vb[idx], pred_y[idx], pred_u[idx],
+            pred_v[idx], *dqs, fi.qidx[idx])
+        ext = _trellis_mbs(coefs, q0, e0, *dqs, t.tcb0, t.tcb1, t.tcb2,
+                           fi.rdmult, fi.rddiv)
     qcoeff, eobs, y, u, v, bmodes = wf.encode_recon_planes(
-        R, C, src_y_blocks, src_u_blocks, src_v_blocks, pred_y, pred_u,
-        pred_v, mode, uv_mode, intra, dq_y1, dq_y2, dq_uv, qidx, ext,
-        bmode_cost, rdmult, rddiv, top)
+        fi.R, fi.C, fi.yb, fi.ub, fi.vb, pred_y, pred_u, pred_v, fi.ymode,
+        uv_mode, intra, fi.dq1, fi.dq2, fi.dqu, fi.qidx, ext,
+        t.bmode_cost if has_bpred else None, fi.rdmult, fi.rddiv, top)
     return qcoeff.to(torch.int16), eobs, uv_mode, y, u, v, bmodes
 
 
@@ -421,7 +473,7 @@ class TorchEncoder(Encoder):
     entropy packing on the host)."""
 
     # device-program dispatch hooks (parallel/sharded_encode.py overrides
-    # them with equivalents of identical global-view signatures)
+    # them with row-sharded equivalents taking the same whole-frame inputs)
     _decide_key_fn = staticmethod(_decide_rd_key)
     _decide_inter_fn = staticmethod(_decide_rd_inter)
     _encode_fn = staticmethod(_encode_device)
@@ -451,7 +503,20 @@ class TorchEncoder(Encoder):
         self._pending = None
         #: the last committed frame's reconstruction, as a decoder shows it
         self.frame_to_show = None
-        self._tcb = _tcb_tables(self.device)
+        mbr, mbc = np.arange(R * C) // C, np.arange(R * C) % C
+        # each MB's full-pel MV bounds [N, 2] (row, column)
+        self._mv_lo = np.stack([-(mbr * 16) - 16, -(mbc * 16) - 16], 1)
+        self._mv_hi = np.stack([(R - 1 - mbr) * 16 + 16,
+                                (C - 1 - mbc) * 16 + 16], 1)
+        j = self._dev
+        self.tables = EncoderTables(
+            j(P.SIXTAP_TABLE), *_tcb_tables(self.device),
+            j(rdopt.BMODE_COST), j(rdopt.KF_YMODE_COST[:4]),
+            j(rdopt.KF_UV_MODE_COST), j(rdopt.YMODE_COST[:5]),
+            j(rdopt.UV_MODE_COST), j(rdopt.MV_COST), j(T.MODE_CONTEXTS),
+            j(rdopt._C0), j(rdopt._C1), j(mbr, np.int64), j(mbc, np.int64),
+            j(np.stack([B + mbr * 16, B + mbc * 16], 1)),
+            j(self._mv_lo * 8), j(self._mv_hi * 8))
 
     def _dev(self, a, dtype=np.int32):
         """Host array -> tensor of `dtype` on the encoder's device."""
@@ -507,14 +572,6 @@ class TorchEncoder(Encoder):
             src_u_pl = j(src.u, np.uint8)
             src_v_pl = j(src.v, np.uint8)
             yb, ub, vb = W.planes_to_blocks(R, C, src_y_pl, src_u_pl, src_v_pl)
-            taps = j(P.SIXTAP_TABLE)
-
-            mbr = np.arange(N) // C
-            mbc = np.arange(N) % C
-            lo_r = j((-(mbr * 16) - 16) * 8)
-            hi_r = j(((R - 1 - mbr) * 16 + 16) * 8)
-            lo_c = j((-(mbc * 16) - 16) * 8)
-            hi_c = j(((C - 1 - mbc) * 16 + 16) * 8)
 
             dqs = dequant_factors(self.qindex, 0, 0, 0, 0, 0)
             self.dq_y1, self.dq_y2, self.dq_uv = dqs
@@ -543,74 +600,65 @@ class TorchEncoder(Encoder):
                                  device=self.device)
             rdd_f = torch.tensor(float(rdd), dtype=torch.float32,
                                  device=self.device)
-            tcb0, tcb1, tcb2, tcb3 = self._tcb
-            bmode_cost = j(rdopt.BMODE_COST)
 
         with trace.span("enc.decision", device=self.device) as sp:
-            if keyframe:
-                mv8 = np.zeros((N, 2), np.int32)
-                refk = np.full(N, -1, np.int32)
-                ref_ids = [LAST_FRAME]
-                ymode_d, uvb_d = self._decide_key_fn(
-                    R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                    tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdm_f, rdd_f,
-                    j(rdopt.KF_YMODE_COST[:4]), j(rdopt.KF_UV_MODE_COST))
-                ref_frames = [(self.ref_last, LAST_FRAME)]
-            else:
-                # reference set (rdopt.c:1714 candidate refs; identity dedup
-                # like the host encoder's refs list)
-                ref_frames = [(self.ref_last, LAST_FRAME)]
-                if self.sf.multi_ref:
-                    if self.ref_gold is not self.ref_last:
-                        ref_frames.append((self.ref_gold, GOLDEN_FRAME))
-                    if (self.ref_alt is not self.ref_last and
-                            self.ref_alt is not self.ref_gold):
-                        ref_frames.append((self.ref_alt, ALTREF_FRAME))
-                ref_ids = [rid for _, rid in ref_frames]
+            # reference set (rdopt.c:1714 candidate refs; identity dedup
+            # like the host encoder's refs list)
+            ref_frames = [(self.ref_last, LAST_FRAME)]
+            if self.sf.multi_ref and not keyframe:
+                if self.ref_gold is not self.ref_last:
+                    ref_frames.append((self.ref_gold, GOLDEN_FRAME))
+                if (self.ref_alt is not self.ref_last and
+                        self.ref_alt is not self.ref_gold):
+                    ref_frames.append((self.ref_alt, ALTREF_FRAME))
+            ref_ids = [rid for _, rid in ref_frames]
             refs_y, refs_u, refs_v = (
                 torch.stack([getattr(f, p) for f, _ in ref_frames])
                 for p in ("y", "u", "v"))
+            inter = {}
             if not keyframe:
-                lo = np.stack([-(mbr * 16) - 16, -(mbc * 16) - 16], 1)
-                hi = np.stack([(R - 1 - mbr) * 16 + 16,
-                               (C - 1 - mbc) * 16 + 16], 1)
-                centers = np.clip(self.prev_mv >> 3, lo, hi)
-                # MV-rate cost tables + per-MB predictor (the previous frame's
-                # MV stands in for best_ref_mv during the search; the lattice
-                # best_mv prices the NEWMV candidates) + sad-per-bit
-                mvcost = j(np.stack([rdopt.MV_COST[0], rdopt.MV_COST[1]]))
-                sadpb = int(ME.SAD_PER_BIT16[self.qindex])
                 # per-ref header signaling costs (intra/last/gf tree)
                 c_in = rdopt.cost1(self.prob_intra)
-                ci0 = rdopt.cost0(self.prob_intra)
-                ci1_list = []
+                ci1 = []
                 for rid in ref_ids:
                     if rid == LAST_FRAME:
-                        ci1_list.append(c_in + rdopt.cost0(self.prob_last))
+                        ci1.append(c_in + rdopt.cost0(self.prob_last))
                     elif rid == GOLDEN_FRAME:
-                        ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
-                                        rdopt.cost0(self.prob_gf))
+                        ci1.append(c_in + rdopt.cost1(self.prob_last) +
+                                   rdopt.cost0(self.prob_gf))
                     else:
-                        ci1_list.append(c_in + rdopt.cost1(self.prob_last) +
-                                        rdopt.cost1(self.prob_gf))
-                me_step = 1 if self.sf.exhaustive_me else 2
-                mv8_d, refk_d, ymode_d, uvb_d = self._decide_inter_fn(
-                    R, C, len(ref_frames), me_step, bool(self.sf.bpred),
-                    refs_y, refs_u, refs_v,
-                    src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                    j(centers), taps, lo_r, hi_r, lo_c, hi_c,
-                    mvcost, j(self.prev_mv), sadpb, tcb0, tcb1, tcb2, tcb3,
-                    dq1, dq2, dqu, qidx, rdm_f, rdd_f,
-                    j(rdopt.YMODE_COST[:5]), j(rdopt.UV_MODE_COST), bmode_cost,
-                    ci0, j(ci1_list),
-                    j(T.MODE_CONTEXTS), j(rdopt._C0), j(rdopt._C1))
+                        ci1.append(c_in + rdopt.cost1(self.prob_last) +
+                                   rdopt.cost1(self.prob_gf))
+                # the previous frame's MV stands in for best_ref_mv during
+                # the search (the lattice best_mv prices the NEWMV
+                # candidates)
+                inter = dict(centers=j(np.clip(self.prev_mv >> 3,
+                                               self._mv_lo, self._mv_hi)),
+                             prev8=j(self.prev_mv),
+                             sadpb=int(ME.SAD_PER_BIT16[self.qindex]),
+                             ci0=rdopt.cost0(self.prob_intra), ci1=j(ci1))
+            fi = FrameInputs(
+                tables=self.tables, C=C, sf=self.sf, src_y_pl=src_y_pl,
+                src_u_pl=src_u_pl, src_v_pl=src_v_pl, refs_y=refs_y,
+                refs_u=refs_u, refs_v=refs_v, rdmult=rdm_f, rddiv=rdd_f,
+                yb=yb, ub=ub, vb=vb, dq1=dq1, dq2=dq2, dqu=dqu, qidx=qidx,
+                **inter)
+            if keyframe:
+                mv8 = np.zeros((N, 2), np.int32)
+                refk = np.full(N, -1, np.int32)
+                mv8_d = torch.zeros((N, 2), dtype=torch.int32,
+                                    device=self.device)
+                refk_d = torch.full((N,), -1, dtype=torch.int32,
+                                    device=self.device)
+                ymode_d, uvb_d = self._decide_key_fn(fi)
+            else:
+                mv8_d, refk_d, ymode_d, uvb_d = self._decide_inter_fn(fi)
             sp.device_end()
             with trace.host_wait():
                 if not keyframe:
                     mv8 = mv8_d.cpu().numpy().astype(np.int32)
                     refk = refk_d.cpu().numpy().astype(np.int32)
                 ymode = ymode_d.cpu().numpy().astype(np.int32)
-                uvmode = uvb_d.cpu().numpy().astype(np.int32)
             intra = refk < 0
 
         with trace.span("enc.encode_mbs", device=self.device) as sp:
@@ -619,10 +667,8 @@ class TorchEncoder(Encoder):
             has_bpred = bool((ymode == W.B_PRED_M).any())
             (qcoeff_d, eobs_d, uv_mode_d, ry, ru, rv,
              bmodes_d) = self._encode_fn(
-                R, C, bool(self.sf.trellis), refs_y, refs_u, refs_v, j(refk),
-                yb, ub, vb, j(ymode), j(uvmode), j(intra, bool), j(mv8), taps,
-                dq1, dq2, dqu, qidx, tcb0, tcb1, tcb2,
-                bmode_cost if has_bpred else None, rdm_f, rdd_f)
+                replace(fi, mv8=mv8_d, refk=refk_d, ymode=ymode_d,
+                        uvmode=uvb_d, intra=intra), has_bpred)
             sp.device_end()
             with trace.host_wait():
                 qcoeff = qcoeff_d.cpu().numpy()

@@ -218,8 +218,8 @@ class ShardedTorchDecoder(TorchDecoder):
     def _frame_device(self, np_args, meta):
         """Every shard's work for one frame, enqueued on the shards'
         streams; returns the ShardedFrame."""
-        R, C, simple_lf, do_lf = meta[:4]
-        w, h = meta[11:]
+        R, C, simple_lf, do_lf = meta.R, meta.C, meta.simple_lf, meta.do_lf
+        w, h = meta.w, meta.h
         table, qcoeff, inter_idx, taps, split = np_args
         halos = halo_rows(R, C, self.rows, table, inter_idx, split)
         refs = [f for i, f in enumerate((self.last, self.golden,

@@ -3,8 +3,8 @@ libvpx_opencl_tpu/parallel/sharded_encode.py (ShardedTPUEncoder).
 
 TorchEncoder's four device hooks run per row shard of a ('row',) mesh
 (parallel/mesh.py; rows split as parallel/sharded_wavefront.split_rows
-splits them), each shard on its device, with the global-view signatures
-TorchEncoder calls them with:
+splits them), each shard on its device; the decision and encode hooks
+give each shard its `FrameInputs.rows` view of the frame's inputs:
 
   * decision (`_decide_key_fn`, `_decide_inter_fn`): each shard searches
     its MBs' motion against the replicated reference planes (the
@@ -60,19 +60,6 @@ class ShardedTorchEncoder(TE.TorchEncoder):
             self.sf = replace(self.sf, bpred=False)
         self.rows = SW.split_rows(self.R, self.n_row)
 
-    # -- per-shard views of the hooks' global-view arguments ---------------
-
-    def _rep(self, s, *ts):
-        """Replicated arguments on shard s's device (ints pass through)."""
-        dev = self._devs[s]
-        return [t.to(dev) if isinstance(t, torch.Tensor) else t for t in ts]
-
-    def _part(self, s, *ts):
-        """Shard s's MBs of per-MB arguments, on its device."""
-        r0, r1 = self.rows[s]
-        C = self.C
-        return [t[r0 * C:r1 * C].to(self._devs[s]) for t in ts]
-
     def _gather(self, outs):
         """Per-shard tuples of per-MB results -> one tuple on the first
         device, in MB order."""
@@ -81,59 +68,29 @@ class ShardedTorchEncoder(TE.TorchEncoder):
 
     # -- the hooks ----------------------------------------------------------
 
-    def _decide_key_fn(self, R, C, src_y_pl, src_u_pl, src_v_pl, yb, ub,
-                       vb, tcb0, tcb1, tcb2, dq1, dq2, dqu, qidx, rdmult,
-                       rddiv, ymode_cost, uvmode_cost):
-        outs = []
-        for s, (r0, r1) in enumerate(self.rows):
-            outs.append(TE._decide_rd_key(
-                r1 - r0, C, *self._rep(s, src_y_pl, src_u_pl, src_v_pl),
-                *self._part(s, yb, ub, vb),
-                *self._rep(s, tcb0, tcb1, tcb2),
-                *self._part(s, dq1, dq2, dqu, qidx),
-                *self._rep(s, rdmult, rddiv, ymode_cost, uvmode_cost),
-                row_off=r0))
-        return self._gather(outs)
+    def _decide_key_fn(self, fi):
+        return self._gather([TE._decide_rd_key(fi.rows(r0, r1, d), r0)
+                             for (r0, r1), d in zip(self.rows, self._devs)])
 
-    def _decide_inter_fn(self, R, C, n_refs, me_step, use_bpred,
-                         refs_y, refs_u, refs_v,
-                         src_y_pl, src_u_pl, src_v_pl, yb, ub, vb,
-                         centers, taps, lo_r, hi_r, lo_c, hi_c,
-                         mvcost, prev8, sadpb, tcb0, tcb1, tcb2, tcb3,
-                         dq1, dq2, dqu, qidx, rdmult, rddiv,
-                         ymode_cost, uvmode_cost, bmode_cost,
-                         ci0, ci1, modectx, c0tab, c1tab):
-        if use_bpred:
+    def _decide_inter_fn(self, fi):
+        if fi.sf.bpred:
             raise ValueError("ShardedTorchEncoder runs with sf.bpred off")
-        mvs = [TE._search_refs(
-            r1 - r0, C, n_refs, me_step, *self._rep(s, refs_y),
-            *self._part(s, yb, centers), *self._rep(s, taps),
-            *self._part(s, lo_r, hi_r, lo_c, hi_c), *self._rep(s, mvcost),
-            *self._part(s, prev8), sadpb, row_off=r0)
-            for s, (r0, r1) in enumerate(self.rows)]
+        views = [fi.rows(r0, r1, d) for (r0, r1), d in zip(self.rows,
+                                                           self._devs)]
+        mvs = [TE._search_refs(v) for v in views]
         outs = []
         for s, (r0, r1) in enumerate(self.rows):
             # the lattice's one cross-row input: the LAST search's MV row
             # above this shard
             above = None if s == 0 else \
-                mvs[s - 1][0][-C:].to(self._devs[s])
-            lattice = ME.near_mv_lattice(mvs[s][0], r1 - r0, C, above, r0, R)
-            outs.append(TE._rd_inter(
-                r1 - r0, C, n_refs, False, mvs[s], lattice,
-                *self._rep(s, refs_y, refs_u, refs_v, src_y_pl, src_u_pl,
-                           src_v_pl),
-                *self._part(s, yb, ub, vb),
-                *self._rep(s, taps, mvcost, tcb0, tcb1, tcb2, tcb3),
-                *self._part(s, dq1, dq2, dqu, qidx),
-                *self._rep(s, rdmult, rddiv, ymode_cost, uvmode_cost,
-                           bmode_cost, ci0, ci1, modectx, c0tab, c1tab),
-                row_off=r0))
+                mvs[s - 1][0][-self.C:].to(self._devs[s])
+            lattice = ME.near_mv_lattice(mvs[s][0], r1 - r0, self.C, above,
+                                         r0, self.R)
+            outs.append(TE._rd_inter(views[s], mvs[s], lattice, r0))
         return self._gather(outs)
 
-    def _encode_fn(self, R, C, use_trellis, refs_y, refs_u, refs_v, refk,
-                   yb, ub, vb, mode, uv_mode, intra, mv8, taps, dq1, dq2,
-                   dqu, qidx, tcb0, tcb1, tcb2, bmode_cost, rdmult, rddiv):
-        if bmode_cost is not None:
+    def _encode_fn(self, fi, has_bpred):
+        if has_bpred:
             raise ValueError("ShardedTorchEncoder runs with sf.bpred off")
         outs, planes = [], []
         for s, (r0, r1) in enumerate(self.rows):
@@ -144,12 +101,7 @@ class ShardedTorchEncoder(TE.TorchEncoder):
                        for pl, b, n in zip(planes[-1], (B, B2, B2),
                                            (16, 8, 8))]
             qcoeff, eobs, uvm, y, u, v, bmodes = TE._encode_device(
-                r1 - r0, C, use_trellis,
-                *self._rep(s, refs_y, refs_u, refs_v),
-                *self._part(s, refk, yb, ub, vb, mode, uv_mode, intra, mv8),
-                *self._rep(s, taps), *self._part(s, dq1, dq2, dqu, qidx),
-                *self._rep(s, tcb0, tcb1, tcb2), None,
-                *self._rep(s, rdmult, rddiv), row_off=r0, top=top)
+                fi.rows(r0, r1, self._devs[s]), False, top)
             outs.append((qcoeff, eobs, uvm, bmodes))
             planes.append((y, u, v))
         qcoeff, eobs, uvm, bmodes = self._gather(outs)
@@ -162,7 +114,8 @@ class ShardedTorchEncoder(TE.TorchEncoder):
                    for d in self._devs[:len(planes)]]
         SW.filter_sharded(
             planes, streams,
-            [self._part(s, lf_params)[0] for s in range(len(planes))]
+            [lf_params[r0 * C:r1 * C].to(d)
+             for (r0, r1), d in zip(self.rows, self._devs)]
             if do_lf else None, False)
         # gather into the whole bordered frame the ring keeps
         out = tuple(torch.empty(shape, dtype=torch.uint8, device=self.device)

@@ -77,9 +77,6 @@ def get_lib():
         lib.vp8e_detokenize.argtypes = [
             u8, i64, i64, ctypes.c_int, u8, ctypes.c_int, ctypes.c_int,
             i32, i32, i16, i32]
-        lib.vp8e_pack_coeffs.restype = ctypes.c_int
-        lib.vp8e_pack_coeffs.argtypes = [
-            i16, ctypes.c_int64, u8, u8, i32, i16, ctypes.c_int64, i64]
         lib.vp8e_count_tokens.restype = ctypes.c_int
         lib.vp8e_count_tokens.argtypes = [
             i16, i32, i32, i32, ctypes.c_int, ctypes.c_int, ctypes.c_int, i64]
@@ -174,44 +171,6 @@ def detokenize_native(lib, dec):
     # int16 end-to-end: the device widens to int32 itself
     dec.qcoeff = qcoeff.reshape(R, C, 25, 16)
     dec.eobs = eobs.reshape(R, C, 25)
-
-
-class _PackScratch:
-    """Reusable output buffers for vp8e_pack_coeffs (per block-count)."""
-
-    def __init__(self, cap):
-        self.cap = cap
-        self.bitmap = np.empty((cap + 7) // 8, np.uint8)
-        self.nib = np.empty((cap, 8), np.uint8)
-        self.esc_idx = np.empty(16 * cap, np.int32)
-        self.esc_val = np.empty(16 * cap, np.int16)
-        self.counts = np.zeros(2, np.int64)
-
-
-_pack_scratch = {}
-
-
-def pack_coeffs_native(lib, qflat):
-    """Nibble-pack the non-zero blocks of coefficients [nblocks, 16] i16.
-
-    Returns (bitmap, nib[:K], esc_idx[:E], esc_val[:E]) as views into
-    reusable scratch (caller must copy anything it keeps past the next
-    call), or None when the native library rejects the input.  bitmap has
-    bit b set (little-endian within bytes) when block b is non-zero."""
-    nblocks = qflat.shape[0]
-    sc = _pack_scratch.get(nblocks)
-    if sc is None:
-        sc = _pack_scratch[nblocks] = _PackScratch(nblocks)
-    qflat = np.ascontiguousarray(qflat, dtype=np.int16)
-    rc = lib.vp8e_pack_coeffs(
-        _p(qflat, ctypes.c_int16), nblocks,
-        _p(sc.bitmap, ctypes.c_uint8), _p(sc.nib, ctypes.c_uint8),
-        _p(sc.esc_idx, ctypes.c_int32), _p(sc.esc_val, ctypes.c_int16),
-        16 * nblocks, _p(sc.counts, ctypes.c_int64))
-    if rc != 0:
-        return None
-    K, E = int(sc.counts[0]), int(sc.counts[1])
-    return (sc.bitmap, sc.nib[:K], sc.esc_idx[:E], sc.esc_val[:E])
 
 
 def count_tokens_native(lib, qcoeff16, eobs, modes, skip,

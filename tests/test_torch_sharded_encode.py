@@ -9,9 +9,11 @@ ShardedTPUEncoder is tests/test_torch_sharded_encode_jax.py.
   at 4 shards, 4 frames;
 * SLICE2_SF (the exhaustive step-1 search, the K3 route) at 176x144: 4
   shards of 9 MB rows (3, 2, 2, 2), 3 frames;
-* B_PRED is forced off at construction, as in the JAX class.
+* B_PRED is forced off at construction, as in the JAX class;
+* `FrameInputs.rows`, the one place a shard's inputs are cut, over 2-4
+  shards: every per-MB field (the tables' too) and nothing else.
 """
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import torch
 
 from conftest import vector  # noqa: F401  (sys.path + CPU JAX)
 from libvpx_opencl_tpu_torch.models import torch_encoder as TE
+from libvpx_opencl_tpu_torch.parallel import sharded_wavefront as SW
 from libvpx_opencl_tpu_torch.parallel.mesh import make_row_mesh
 from libvpx_opencl_tpu_torch.parallel.sharded_encode import \
     ShardedTorchEncoder
@@ -96,3 +99,44 @@ def test_bpred_forced_off():
     enc = sharded(2, 64, 64, qindex=40)
     assert not enc.sf.bpred
     assert TE.TorchEncoder(64, 64, device="cpu").sf.bpred
+
+
+@pytest.fixture(scope="module")
+def frame_inputs():
+    """The FrameInputs an inter frame's encode hook gets (80x64: N = 20
+    MBs, a length no replicated field has)."""
+    enc = TE.TorchEncoder(80, 64, qindex=40, cpu_used=7, device="cpu")
+    seen = []
+
+    def keep(fi, has_bpred):
+        seen.append(fi)
+        return TE._encode_device(fi, has_bpred)
+    enc._encode_fn = keep
+    encode_all(enc, [(y[:64, :80], u[:32, :40], v[:32, :40])
+                     for y, u, v in frames_176x128(2)])
+    return seen[-1]
+
+
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+def test_frame_inputs_rows_cut_every_per_mb_field(frame_inputs, n_shards):
+    fi = frame_inputs
+    N = fi.R * fi.C
+    rows = SW.split_rows(fi.R, n_shards)
+    views = [fi.rows(r0, r1, torch.device("cpu")) for r0, r1 in rows]
+    assert [v.R for v in views] == [r1 - r0 for r0, r1 in rows]
+    for whole, parts in ((fi, views), (fi.tables, [v.tables for v in views])):
+        for f in fields(whole):
+            want = getattr(whole, f.name)
+            got = [getattr(p, f.name) for p in parts]
+            if f.metadata.get("per_mb"):
+                # per-MB: the shards' parts are the whole frame's MBs
+                assert want.shape[0] == N, f.name
+                cat = np.concatenate if isinstance(want, np.ndarray) \
+                    else torch.cat
+                assert (cat(got) == want).all(), f.name
+                assert [len(g) for g in got] == [(r1 - r0) * fi.C
+                                                 for r0, r1 in rows]
+            elif isinstance(want, torch.Tensor):
+                # replicated: whole on every shard (first dim is not N)
+                assert want.dim() == 0 or want.shape[0] != N, f.name
+                assert all(torch.equal(g, want) for g in got), f.name

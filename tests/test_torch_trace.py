@@ -190,13 +190,13 @@ def test_encode_spans_and_host_waits(traced):
         assert names[name] == ENC_FRAMES, name
     assert names["enc.mv_modes"] == ENC_FRAMES - 1      # inter frames
     # one enc.host_wait per read site reached: the decision's and the
-    # encode wavefront's outputs once per frame, the trellis' inter list
-    # once per frame, K5's flags, K3's argument check and the B_PRED
-    # table upload once per call
+    # encode wavefront's outputs once per frame, K5's flags, K3's argument
+    # check and the B_PRED table upload once per call (the trellis' inter
+    # list comes from the decision's host copy: no read of its own)
     assert counts["_check"] > 0 and counts["bpred_4x4_all"] > 0
     assert counts["trellis_mbs"] > 0
     waits = [r for r in recs if r.name == "enc.host_wait"]
-    assert len(waits) == 3 * ENC_FRAMES + counts["_frame_setup"] + \
+    assert len(waits) == 2 * ENC_FRAMES + counts["_frame_setup"] + \
         counts["_check"] + counts["bpred_4x4_all"]
     for r in waits:
         assert by_id[r.parent].name in ("enc.decision", "enc.encode_mbs")
